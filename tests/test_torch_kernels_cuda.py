@@ -1,4 +1,5 @@
-"""The port's CUDA matcher kernel against its plain PyTorch version.
+"""The port's CUDA matcher kernel against its plain PyTorch version, and
+the port's bundle adjuster on the card against the same solve on the CPU.
 
 Needs a CUDA device and nvcc; skips elsewhere.  On a machine with a GPU
 (and no JAX, which the repo's conftest imports), run:
@@ -11,6 +12,7 @@ import pytest
 import torch
 
 from xrsfm_tpu_torch.ops import matching as TM
+from xrsfm_tpu_torch.utils import synth
 from xrsfm_tpu_torch.utils.synth import descriptor_case
 
 pytestmark = pytest.mark.cuda
@@ -67,3 +69,24 @@ def test_topstats_kernel_rejects_bad_inputs(cuda_device):
         TM.topstats_cuda(d1.float(), d2, m1, m2)
     with pytest.raises(ValueError):
         TM.topstats_cuda(d1.cpu(), d2, m1, m2)
+
+
+def test_solve_ba_on_cuda_matches_cpu(cuda_device):
+    """The port's BA (plain PyTorch ops; no hand kernel yet) on the card
+    against the same solve on the CPU, 20 cameras and 500 points, bench
+    settings: final cost, poses and points within rtol 1e-4 (index_add_
+    sums in another order on the card)."""
+    from xrsfm_tpu_torch.optim import ba
+
+    d = synth.ba_problem(n_cams=20, n_pts=500, seed=0)
+    opts = ba.BAOptions(max_iters=10, cg_iters=2, huber_px=4.0,
+                        lam_init=1e-4)
+    cpu, i_cpu = ba.solve_ba(ba.BAProblem.from_numpy("cpu", **d), opts)
+    ba.reset_counts()
+    gpu, i_gpu = ba.solve_ba(ba.BAProblem.from_numpy(cuda_device, **d), opts)
+    assert ba.COUNTS["solves_cuda"] == 1 and ba.COUNTS["solves_cpu"] == 0
+    assert i_gpu["final_cost"] == pytest.approx(i_cpu["final_cost"], rel=1e-4)
+    for g, c in ((gpu.cam_q, cpu.cam_q), (gpu.cam_t, cpu.cam_t),
+                 (gpu.points, cpu.points)):
+        np.testing.assert_allclose(g.cpu().numpy(), c.numpy(), rtol=1e-4,
+                                   atol=1e-4)

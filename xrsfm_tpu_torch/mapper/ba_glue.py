@@ -1,0 +1,181 @@
+"""Bridge between the host-side SfMMap and the BA solver (port of
+xrsfm_tpu/mapper/ba_glue.py; reference: BASolver::GBA/LBA set-up,
+src/optimization/ba_solver.cc:358-638).
+
+Builds an unpadded COO BAProblem on the requested device for a local or
+global solve, and writes the optimized poses and points back in float64.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Optional, Sequence
+
+import numpy as np
+
+from ..base.map import SfMMap
+from ..optim.ba import BAOptions, BAProblem, solve_ba
+from ..utils.io_features import bucket
+
+
+@dataclasses.dataclass
+class BAGlueResult:
+    frame_ids: np.ndarray
+    track_ids: np.ndarray
+    initial_cost: float
+    final_cost: float
+    iters: int
+    n_obs: int = 0  # live observations of the solved problem
+
+
+def _collect(m: SfMMap, opt_frames: Sequence[int], obs_frames=None):
+    """Rows of the map's flat COO observation table that the problem
+    holds: every live observation of a track seen by an opt frame
+    (restricted to obs_frames when given)."""
+    n = m.num_obs_slots
+    ot = m.obs_track[:n]
+    of_ = m.obs_frame[:n]
+    op_ = m.obs_p2d[:n]
+    live = ot >= 0
+    live = live & m.track_valid[np.clip(ot, 0, None)]
+
+    opt_mask = np.zeros(m.num_frames, bool)
+    opt_mask[np.asarray(list(opt_frames), np.int64)] = True
+    tr_mask = np.zeros(m.num_tracks, bool)
+    tr_mask[ot[live & opt_mask[of_]]] = True
+    rows = live & tr_mask[np.clip(ot, 0, None)]
+    if obs_frames is not None:
+        allowed = np.zeros(m.num_frames, bool)
+        allowed[np.asarray(list(obs_frames), np.int64)] = True
+        rows &= allowed[of_]
+    ot, of_, op_ = ot[rows], of_[rows], op_[rows]
+    frames = np.unique(
+        np.concatenate([of_, np.asarray(list(opt_frames), np.int64)])
+    )
+    return frames, np.unique(ot), (of_, ot, op_)
+
+
+def build_problem(
+    m: SfMMap,
+    opt_frames: Sequence[int],
+    device,
+    fix_all_poses: bool = False,
+    gauge_frames: Optional[Sequence[int]] = None,
+    obs_frames: Optional[Sequence[int]] = None,
+    freeze_tracks: Optional[np.ndarray] = None,
+):
+    """Returns (BAProblem, frames, tracks, n_obs), or (None, None, None, 0)
+    without observations.  Frames outside opt_frames that observe shared
+    tracks enter frozen, as the reference holds non-local frames in LBA
+    (ba_solver.cc:358-391); obs_frames restricts which frames contribute
+    observations (KGBA: keyframes only, ba_solver.cc:640-678)."""
+    frames, tracks, (row_f, row_t, row_p) = _collect(m, opt_frames, obs_frames)
+    n_obs = len(row_f)
+    if n_obs == 0:
+        return None, None, None, 0
+    nf, nt = len(frames), len(tracks)
+
+    opt_mask = np.zeros(m.num_frames, bool)
+    opt_mask[np.asarray(list(opt_frames), np.int64)] = True
+    fix_cam = fix_all_poses | ~opt_mask[frames]
+    fix_trans = np.zeros(nf, bool)
+    obs_cam = np.searchsorted(frames, row_f)
+    obs_pt = np.searchsorted(tracks, row_t)
+    uv = np.empty((n_obs, 2), np.float32)
+    order = np.argsort(row_f, kind="stable")
+    rf_s, rp_s = row_f[order], row_p[order]
+    starts = np.r_[0, np.nonzero(rf_s[1:] != rf_s[:-1])[0] + 1, n_obs]
+    for s, e in zip(starts[:-1], starts[1:]):
+        uv[order[s:e]] = m.kps[int(rf_s[s])][rp_s[s:e]]
+
+    # gauge: if nothing is frozen, freeze the first gauge frame fully and
+    # the second's translation (reference GBA freezes the init-pair
+    # translations, ba_solver.cc:610-614)
+    if not fix_all_poses and not np.any(fix_cam):
+        fidx = {int(f): i for i, f in enumerate(frames)}
+        gf = [int(f) for f in (gauge_frames or []) if int(f) in fidx]
+        if len(gf) < 2:
+            # the two frames with most observations; counted over the JAX
+            # package's padded camera count, so that ties sort alike
+            cnts = np.bincount(obs_cam, minlength=bucket(nf, lo=8))
+            gf = [int(frames[int(i)]) for i in np.argsort(-cnts)[:2]]
+        fix_cam[fidx[gf[0]]] = True
+        for f in gf[1:2]:
+            fix_trans[fidx[f]] = True
+
+    prob = BAProblem.from_numpy(
+        device,
+        cam_q=m.q[frames],
+        cam_t=m.t[frames],
+        cam_intri=np.stack([m.cameras[int(m.cam_of_frame[f])] for f in frames]),
+        points=m.track_xyz[tracks],
+        obs_uv=uv,
+        obs_cam=obs_cam,
+        obs_pt=obs_pt,
+        obs_w=np.ones(n_obs, np.float32),
+        fix_cam=fix_cam,
+        fix_trans=fix_trans,
+        fix_pt=(freeze_tracks[tracks] if freeze_tracks is not None
+                else np.zeros(nt, bool)),
+    )
+    return prob, frames, tracks, n_obs
+
+
+# per-phase host seconds and call count of run_ba since the last reset
+PROF = {"build": 0.0, "solve_fetch": 0.0, "writeback": 0.0, "calls": 0}
+
+
+def run_ba(
+    m: SfMMap,
+    opt_frames: Sequence[int],
+    opts: BAOptions = BAOptions(),
+    fix_all_poses: bool = False,
+    obs_frames: Optional[Sequence[int]] = None,
+    optimize_intrinsics: bool = False,
+    freeze_tracks: Optional[np.ndarray] = None,
+    mesh=None,
+    *,
+    device,
+) -> Optional[BAGlueResult]:
+    """Build, solve on `device`, write back."""
+    if optimize_intrinsics:
+        raise NotImplementedError(
+            "intrinsics BA is not ported yet (ROADMAP.md, Still to port, "
+            "item 3)")
+    if mesh is not None:
+        raise NotImplementedError(
+            "sharded BA over a device mesh is not ported yet (ROADMAP.md, "
+            "Still to port, item 5: parallel/)")
+    gauge = [m.init_id1, m.init_id2] if m.init_id1 >= 0 else []
+    t0 = time.perf_counter()
+    prob, frames, tracks, n_obs = build_problem(
+        m, opt_frames, device, fix_all_poses=fix_all_poses,
+        gauge_frames=gauge, obs_frames=obs_frames,
+        freeze_tracks=freeze_tracks,
+    )
+    PROF["build"] += time.perf_counter() - t0
+    PROF["calls"] += 1
+    if prob is None:
+        return None
+    t0 = time.perf_counter()
+    sol, info = solve_ba(prob, opts)
+    q = sol.cam_q.cpu().numpy().astype(np.float64)
+    t = sol.cam_t.cpu().numpy().astype(np.float64)
+    pts = sol.points.cpu().numpy().astype(np.float64)
+    PROF["solve_fetch"] += time.perf_counter() - t0
+    t0 = time.perf_counter()
+    upd = ~prob.fix_cam.cpu().numpy()
+    fr = frames[upd]
+    m.q[fr] = q[upd] / np.linalg.norm(q[upd], axis=1, keepdims=True)
+    m.t[fr] = t[upd]
+    m.track_xyz[tracks] = pts
+    PROF["writeback"] += time.perf_counter() - t0
+    return BAGlueResult(
+        frame_ids=frames,
+        track_ids=tracks,
+        initial_cost=info["initial_cost"],
+        final_cost=info["final_cost"],
+        iters=info["iters"],
+        n_obs=int(n_obs),
+    )

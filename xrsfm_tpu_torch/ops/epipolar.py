@@ -1,9 +1,11 @@
-"""Batched two-view epipolar geometry, fundamental-matrix part (port of
-xrsfm_tpu/ops/epipolar.py:34-140).
+"""Batched two-view epipolar geometry (port of
+xrsfm_tpu/ops/epipolar.py:34-220).
 
   * 7-point / 8-point fundamental matrix
     (reference: src/geometry/colmap/estimators/fundamental_matrix.cc:48-199)
   * Sampson error (reference: fundamental_matrix.cc:202-230)
+  * 8-point essential matrix, E from a pose, essential decomposition and
+    cheirality pose recovery (reference: src/geometry/essential.cc:221-487)
 
 Every function takes any leading batch dimensions.  Nullspaces come from
 the symmetric eigendecomposition of A^T A; the 7-point cubic det
@@ -19,7 +21,8 @@ import math
 
 import torch
 
-from . import poly
+from . import linalg, poly
+from ..utils import geometry as G
 
 
 def _hom(x):
@@ -137,3 +140,78 @@ def fundamental_7pt(x1, x2, mask):
     Fs = Fs / nrm.clamp_min(1e-12)
     valid = rvalid & (mask.sum(dim=-1) >= 7)[..., None]
     return Fs, valid
+
+
+def essential_8pt(x1, x2, mask):
+    """8-point essential matrix on normalized camera coordinates, projected
+    to the essential manifold (singular values (s, s, 0)).  x1, x2
+    [..., N, 2], mask [..., N].  Returns (E [..., 3, 3], valid [...])."""
+    w = mask.to(x1.dtype)
+    e = _epipolar_nullspace(x1, x2, w, 1)[..., 0]
+    E = e.reshape(e.shape[:-1] + (3, 3))
+    U, s, Vh = linalg.svd(E)
+    sm = 0.5 * (s[..., 0] + s[..., 1])
+    diag = torch.stack([sm, sm, torch.zeros_like(sm)], dim=-1)
+    E = (U * diag[..., None, :]) @ Vh
+    E = E / torch.linalg.norm(E, dim=(-2, -1), keepdim=True).clamp_min(1e-12)
+    valid = mask.sum(dim=-1) >= 8
+    return E, valid
+
+
+def essential_from_pose(q, t):
+    """E = [t]x R for the relative pose x2 = R x1 + t."""
+    return G.skew(t) @ G.quat_to_rotmat(q)
+
+
+def decompose_essential(E):
+    """E [..., 3, 3] -> (R1, R2, t): the four hypotheses are (R1, t),
+    (R1, -t), (R2, t), (R2, -t) (reference: essential.cc:221-281)."""
+    U, _, Vh = linalg.svd(E)
+    U = U * torch.sign(torch.linalg.det(U))[..., None, None]
+    Vh = Vh * torch.sign(torch.linalg.det(Vh))[..., None, None]
+    W = E.new_tensor([[0.0, -1.0, 0.0], [1.0, 0.0, 0.0], [0.0, 0.0, 1.0]])
+    R1 = U @ W @ Vh
+    R2 = U @ W.transpose(0, 1) @ Vh
+    t = U[..., :, 2]
+    return R1, R2, t
+
+
+def _depth_in_front(R, t, x1, x2, mask, max_depth=100.0):
+    """Points with positive, bounded depth in both views after
+    triangulation with cam1 = I, cam2 = (R, t).  R [..., 3, 3], t [..., 3],
+    x1, x2 [..., N, 2].  Returns (count [...], ok [..., N])."""
+    from . import triangulation as T
+
+    shp = x1.shape[:-1]
+    q2 = G.rotmat_to_quat(R)[..., None, :].expand(shp + (4,))
+    t2 = t[..., None, :].expand(shp + (3,))
+    qi = x1.new_tensor([1.0, 0.0, 0.0, 0.0]).expand(shp + (4,))
+    ti = x1.new_zeros(shp + (3,))
+    X = T.triangulate_two_view(qi, ti, x1, q2, t2, x2)
+    z1 = X[..., 2]
+    z2 = G.pose_apply(q2, t2, X)[..., 2]
+    ok = (z1 > 0) & (z1 < max_depth) & (z2 > 0) & (z2 < max_depth) & mask
+    return ok.sum(dim=-1), ok
+
+
+def recover_pose_from_essential(E, x1, x2, mask):
+    """The decomposition of E with the best cheirality support; x are
+    normalized coords.  Returns (q [..., 4], t [..., 3], num_good [...],
+    good_mask [..., N]) (reference: check_essential_rt + decompose_rt,
+    essential.cc:432-487)."""
+    R1, R2, t = decompose_essential(E)
+    cands = [(R1, t), (R1, -t), (R2, t), (R2, -t)]
+    res = [_depth_in_front(R_, t_, x1, x2, mask) for R_, t_ in cands]
+    counts = torch.stack([c for c, _ in res], dim=-1)  # [..., 4]
+    masks = torch.stack([m for _, m in res], dim=-2)  # [..., 4, N]
+    Rs = torch.stack([c[0] for c in cands], dim=-3)  # [..., 4, 3, 3]
+    ts = torch.stack([c[1] for c in cands], dim=-2)  # [..., 4, 3]
+    best = torch.argmax(counts, dim=-1)
+    pick = best[..., None]
+    R = torch.gather(Rs, -3, pick[..., None, None].expand(
+        best.shape + (1, 3, 3)))[..., 0, :, :]
+    tb = torch.gather(ts, -2, pick[..., None].expand(best.shape + (1, 3)))[..., 0, :]
+    n = torch.gather(counts, -1, pick)[..., 0]
+    mb = torch.gather(masks, -2, pick[..., None].expand(
+        best.shape + (1, masks.shape[-1])))[..., 0, :]
+    return G.rotmat_to_quat(R), tb, n, mb

@@ -10,18 +10,29 @@ fixed number of times (reference: loransac.h's LocalEstimator).
 
 The leading dimension B is the problem (image pair) dimension that the
 JAX package expresses with vmap.  Sampling draws from one explicit
-torch.Generator per problem, or takes the indices from the caller.
+torch.Generator per problem, or takes the indices from the caller.  A
+model is a tensor or a tuple of tensors (PnP's (q, t)), as a JAX pytree
+of arrays.
 """
 
 from __future__ import annotations
 
-from typing import Callable, NamedTuple, Optional, Sequence
+from typing import Callable, NamedTuple, Optional, Sequence, Tuple, Union
 
 import torch
 
+Model = Union[torch.Tensor, Tuple[torch.Tensor, ...]]
+
+
+def _map(fn, model: Model, *others: Model) -> Model:
+    """fn applied leaf by leaf to a tensor model or a tuple of tensors."""
+    if isinstance(model, tuple):
+        return tuple(fn(*leaves) for leaves in zip(model, *others))
+    return fn(model, *others)
+
 
 class RansacResult(NamedTuple):
-    model: torch.Tensor  # [B, ...] best model per problem
+    model: Model  # [B, ...] best model per problem (or a tuple of them)
     inliers: torch.Tensor  # [B, N] bool
     num_inliers: torch.Tensor  # [B] int
     score: torch.Tensor  # [B] float32 (truncated residual sum, lower=better)
@@ -67,10 +78,12 @@ def ransac(
 
     data: tuple of tensors [B, N, ...] (padded points).
     mask: [B, N] bool, valid entries of the padded pool.
+    threshold: a float, or a [B] tensor of one threshold per problem.
     generators: one torch.Generator per problem (on mask's device), or
     sample_idx: [B, H, k] explicit sample indices (H = num_hypotheses).
-    estimate_fn(sampled, sample_valid) -> (models [B, H, M, ...],
-        valid [B, H, M]); sampled is data gathered to [B, H, k, ...].
+    estimate_fn(sampled, sample_valid) -> (models [B, H, M, ...] or a
+        tuple of such tensors, valid [B, H, M]); sampled is data gathered
+        to [B, H, k, ...].
     residual_fn(models [B, S, ...], data) -> [B, S, N] residuals (same
         metric as threshold).
     refit_fn(data, weight_mask [B, N]) -> (model [B, ...], valid [B]):
@@ -89,25 +102,31 @@ def ransac(
     sampled = tuple(a[bi[:, None, None], idx] for a in data)
 
     models, model_valid = estimate_fn(sampled, sample_valid)
-    flat_models = models.reshape((B, -1) + models.shape[3:])  # [B, S, ...]
+    flat_models = _map(lambda a: a.reshape((B, -1) + a.shape[3:]),
+                       models)  # [B, S, ...]
     flat_valid = model_valid.reshape(B, -1)  # [B, S]
 
     res = residual_fn(flat_models, data)  # [B, S, N]
     res = torch.where(mask[:, None, :], res, torch.inf)
     res = torch.where(flat_valid[..., None], res, torch.inf)
 
-    inl = res <= threshold
+    if isinstance(threshold, torch.Tensor):  # one threshold per problem
+        th = threshold.to(device=dev, dtype=res.dtype).reshape(B, 1)
+        th_sn, th_key = th[..., None], th  # against [B, S, N], [B, S]
+    else:
+        th = th_sn = torch.tensor(threshold, dtype=res.dtype, device=dev)
+        th_key = threshold
+    inl = res <= th_sn
     counts = inl.sum(dim=-1)
-    scores = torch.minimum(res, torch.tensor(threshold, dtype=res.dtype,
-                                             device=dev)).sum(dim=-1)
+    scores = torch.minimum(res, th_sn).sum(dim=-1)
     scores = torch.where(torch.isfinite(scores), scores, torch.inf)
     # maximize count, tie-break by minimal truncated score
     order_key = counts.to(torch.float32) - scores / (
-        threshold * max(n, 1) + 1.0
+        th_key * max(n, 1) + 1.0
     )
     best = torch.argmax(order_key, dim=-1)  # first maximum
 
-    best_model = flat_models[bi, best]
+    best_model = _map(lambda a: a[bi, best], flat_models)
     best_inl = inl[bi, best]
     best_count = counts[bi, best]
     best_score = scores[bi, best]
@@ -116,13 +135,13 @@ def ransac(
     )
 
     if refit_fn is not None:
-        th = torch.tensor(threshold, dtype=res.dtype, device=dev)
         for _ in range(lo_iters):
             new_model, new_valid = refit_fn(data, best_inl & mask)
-            r = residual_fn(new_model[:, None], data)[:, 0]  # [B, N]
+            r = residual_fn(_map(lambda a: a[:, None], new_model),
+                            data)[:, 0]  # [B, N]
             r = torch.where(mask, r, torch.inf)
             r = torch.where(new_valid[:, None], r, torch.inf)
-            new_inl = r <= threshold
+            new_inl = r <= th
             new_count = new_inl.sum(dim=-1)
             new_score = torch.minimum(r, th).sum(dim=-1)
             new_score = torch.where(torch.isfinite(new_score), new_score,
@@ -131,8 +150,10 @@ def ransac(
                 (new_count == best_count) & (new_score < best_score)
             )
             better = better & new_valid
-            sel = better.reshape((B,) + (1,) * (best_model.dim() - 1))
-            best_model = torch.where(sel, new_model, best_model)
+            best_model = _map(
+                lambda new, old: torch.where(
+                    better.reshape((B,) + (1,) * (old.dim() - 1)), new, old),
+                new_model, best_model)
             best_inl = torch.where(better[:, None], new_inl, best_inl)
             best_count = torch.where(better, new_count, best_count)
             best_score = torch.where(better, new_score, best_score)

@@ -1,2 +1,3 @@
-"""Host-side helpers of the port: binary feature I/O, image files,
-synthetic scenes and option conversion."""
+"""Host-side helpers and shared math of the port: binary feature and
+COLMAP I/O, image files, geometry and camera models, synthetic scenes and
+problems, and option conversion."""

@@ -1,5 +1,6 @@
-"""Synthetic data: the arc scene of scripts/synth_dataset.py, and seeded
-descriptor sets for the matcher's kernel checks.
+"""Synthetic data: the arc scene of scripts/synth_dataset.py, seeded
+descriptor sets for the matcher's kernel checks, and the bundle-adjustment
+benchmark problem of bench.make_ba_problem.
 
 The arc scene ray-casts two textured Lambertian planes (a wall and a
 floor) from an arc of cameras, so every pixel observes a fixed 3D point
@@ -213,3 +214,55 @@ def descriptor_case(seed, B, N, M):
     if B >= 3:
         m2[B - 1] = False
     return d1, d2, m1, m2
+
+
+def ba_problem(n_cams=200, n_pts=20000, obs_per_pt=7, seed=0):
+    """bench.make_ba_problem's KITTI-scale BA problem, in numpy and in COO
+    order (no camera-major packing): the same generator calls in the same
+    order, so the same problem for the same seed.  Returns a dict of the
+    optim.ba.BAProblem fields (seed 0 at the default size: 200 cameras,
+    20,000 points, about 140k observations)."""
+    rng = np.random.default_rng(seed)
+    f, cx, cy = 718.0, 607.0, 185.0  # KITTI-like intrinsics
+    # forward motion: cameras at identity rotation, Tcw t = -c
+    centers = np.cumsum(
+        rng.normal(scale=[0.15, 0.02, 0.05], size=(n_cams, 3)), axis=0
+    )
+    centers[:, 2] += np.arange(n_cams) * 1.0
+    qs = np.zeros((n_cams, 4))
+    qs[:, 0] = 1.0
+    anchor = rng.integers(0, n_cams, n_pts)
+    uv_n = rng.uniform(-0.4, 0.4, size=(n_pts, 2))
+    depth = rng.uniform(5.0, 40.0, size=(n_pts, 1))
+    xyz = centers[anchor] + depth * np.concatenate(
+        [uv_n, np.ones((n_pts, 1))], axis=1
+    )
+    obs_cam = np.concatenate([
+        np.clip(anchor - obs_per_pt // 2 + k, 0, n_cams - 1)
+        for k in range(obs_per_pt)
+    ]).astype(np.int32)
+    obs_pt = np.tile(np.arange(n_pts), obs_per_pt).astype(np.int32)
+    pc = xyz[obs_pt] - centers[obs_cam]
+    proj = pc[:, :2] / np.maximum(pc[:, 2:3], 1e-6)
+    good = (pc[:, 2] > 1.0) & (np.abs(proj) < 0.6).all(axis=1)
+    obs_cam, obs_pt, pc = obs_cam[good], obs_pt[good], pc[good]
+    uv = pc[:, :2] / pc[:, 2:3] * f + np.array([cx, cy])
+    uv += rng.normal(scale=0.5, size=uv.shape)
+    fix_cam = np.zeros(n_cams, bool)
+    fix_cam[0] = True
+    fix_trans = np.zeros(n_cams, bool)
+    fix_trans[1] = True
+    return dict(
+        cam_q=qs.astype(np.float32),
+        cam_t=(-centers).astype(np.float32),
+        cam_intri=np.tile(np.array([f, f, cx, cy, 0, 0, 0, 0], np.float32),
+                          (n_cams, 1)),
+        points=(xyz + rng.normal(scale=0.05, size=xyz.shape)).astype(np.float32),
+        obs_uv=uv.astype(np.float32),
+        obs_cam=obs_cam,
+        obs_pt=obs_pt,
+        obs_w=np.ones(len(obs_cam), np.float32),
+        fix_cam=fix_cam,
+        fix_trans=fix_trans,
+        fix_pt=np.zeros(n_pts, bool),
+    )
