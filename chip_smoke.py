@@ -5,12 +5,23 @@
 
 Phases, each reported on its own line:
   1. the card's name and power limit (nvidia-smi);
-  2. build of the CUDA kernel csrc/topstats.cu with nvcc for sm_90a, from
-     the sources in this checkout;
+  2. build of the CUDA kernel csrc/topstats.cu (matcher statistics: u8
+     wgmma dots on the tensor cores, tiles fed by TMA) with nvcc for
+     sm_90a, from the sources in this checkout; the built library's
+     registers and memory (cuobjdump -res-usage) and its tensor-core and
+     TMA instructions (cuobjdump -sass), which must be there;
   3. the kernel against its plain PyTorch version on the card, on seeded
      descriptors with planted matches, exact ties and ragged masks, at the
-     matching stage's chunk shapes: all four outputs must be bit-equal;
-     median times of both;
+     matching stage's chunk shapes and at one ragged shape (3, 200, 184):
+     all four outputs must be bit-equal; at the chunk shapes the kernel's
+     time as one launch between two CUDA events (median of 20; the host's
+     enqueue included) and its device time per launch (20 launches queued
+     behind a sleep kernel between two events, median of 5 rounds), beside
+     its roofline bound (int8
+     operations of one pass over S at 1,979 TOP/s against the bytes of
+     inputs and outputs at 3.35 TB/s, from B, N, M), the plain version's
+     time, and as a yardstick only the product alone: torch.bmm of bf16
+     copies, which the port never calls;
   4. the matching stage through its entry point,
      pipelines.run_matching.main(..., "sequential", ..., device="cuda"),
      on 48 rendered 640x480 arc-scene images (722 candidate pairs);
@@ -49,12 +60,16 @@ Phases, each reported on its own line:
      mean reprojection error < 1 px, BA on CUDA.
 
 Any failure exits non-zero.  Without a CUDA device it exits 1 at once.
-The last two lines of standard output are the kernel summary (JSON) and
+The last two lines of standard output are the kernel summary (JSON: per
+kernel its launches on the main path, max_abs_err, ms (one launch between
+two events), queued_ms, plain_ms, bound_ms, bound_by and library_ms, null
+where no single PyTorch call computes the function) and
 {"ok": true, "device": {...}}.
 """
 
 import json
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -68,7 +83,11 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 N_IMAGES = 48
 WIDTH, HEIGHT, FOCAL = 640, 480, 562.5  # the arc scene's 512x384 f=450 FOV
-PHASE3_SHAPES = [(16, 2048), (16, 4096), (4, 8192)]  # (pairs B, N = M)
+PHASE3_SHAPES = [(16, 2048, 2048), (16, 4096, 4096), (4, 8192, 8192)]
+PHASE3_RAGGED = (3, 200, 184)  # (pairs B, N, M): checked, not timed
+# NVIDIA H100 SXM data sheet: dense int8 rate and memory rate at 700 W
+PEAK_INT8_OPS = 1979e12
+PEAK_BYTES = 3.35e12
 SAMPSON_PX = 4.0  # MatchingOptions.f_ransac_px
 MIN_GOOD_FRACTION = 0.9
 # The JAX package's bf16 camera-major solver stops at 54,536..54,555
@@ -134,29 +153,95 @@ def time_ms(fn, reps):
     return statistics.median(times)
 
 
-def compare_kernel(TM, synth, B, N):
-    """Kernel vs plain on one seeded case: (max_abs_err, kernel ms,
-    plain ms); fails unless all four outputs are bit-equal."""
+def queued_ms(fn, launches=20, rounds=5):
+    """Median over `rounds` of the device time per launch of fn, in ms: the
+    device is kept busy by a sleep kernel while `launches` launches are
+    enqueued between two events, so nothing of the host is in it."""
+    fn()
+    torch.cuda.synchronize()
+    per = []
+    for _ in range(rounds):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(20_000_000)  # about 10 ms: the host runs ahead
+        start.record()
+        for _ in range(launches):
+            fn()
+        end.record()
+        end.synchronize()
+        per.append(start.elapsed_time(end) / launches)
+    return statistics.median(per)
+
+
+def topstats_bound_ms(B, N, M):
+    """Roofline bound of one topstats call, in ms, and what bounds it: one
+    pass over S = d1 d2^T (B*2*N*M*128 int8 operations) against every input
+    read once and every output written once."""
+    ops = 2.0 * B * N * M * 128
+    nbytes = B * (N + M) * (128 + 1) + B * N * 12 + B * M * 4
+    t_ops, t_bytes = ops / PEAK_INT8_OPS, nbytes / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), (
+        "operations" if t_ops >= t_bytes else "bytes")
+
+
+def inspect_library(path):
+    """What cuobjdump says of the built kernel library: its resource line
+    (registers, stack, shared and local memory) and the distinct
+    tensor-core (GMMA) and TMA (UTMALDG) instructions in its SASS.  Fails
+    if the dots are not on the tensor cores or the tiles not fed by TMA."""
+    exe = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+
+    def dump(flag):
+        return subprocess.run([exe, flag, path], capture_output=True,
+                              text=True, check=True).stdout
+
+    usage = [ln.strip() for ln in dump("-res-usage").splitlines()
+             if "REG:" in ln]
+    found = {}
+    for ln in dump("-sass").splitlines():
+        m = re.search(r"\b(\w*GMMA[\w.]*|UTMALDG[\w.]*)", ln)
+        if m:
+            found[m.group(1)] = found.get(m.group(1), 0) + 1
+    if not any("GMMA" in k and "U8.U8" in k for k in found):
+        fail(f"no u8 GMMA instruction in {path}: {found}")
+    if not any(k.startswith("UTMALDG") for k in found):
+        fail(f"no TMA load in {path}: {found}")
+    return usage, found
+
+
+def compare_kernel(TM, synth, B, N, M, timed=True):
+    """Kernel vs plain on one seeded case; fails unless all four outputs
+    are bit-equal.  Returns a dict: max_abs_err and, if timed, ms (one
+    launch between two events), queued_ms (device time per queued launch),
+    plain_ms, bmm_ms (torch.bmm of bf16 copies), bound_ms, bound_by."""
     args = [torch.from_numpy(a).cuda()
-            for a in synth.descriptor_case(1000 + N, B, N, N)]
+            for a in synth.descriptor_case(1000 + N, B, N, M)]
     got = TM.topstats_cuda(*args)
     torch.cuda.synchronize()
     exp = TM.topstats_reference(*args)
     err = 0.0
     for g, e, name in zip(got, exp, ("best", "second", "best_j", "col_arg")):
         if g.dtype != e.dtype or g.shape != e.shape:
-            fail(f"topstats {name} at B={B} N=M={N}: {g.dtype}{tuple(g.shape)}"
-                 f" vs {e.dtype}{tuple(e.shape)}")
+            fail(f"topstats {name} at B={B} N={N} M={M}: "
+                 f"{g.dtype}{tuple(g.shape)} vs {e.dtype}{tuple(e.shape)}")
         if not torch.equal(g.view(torch.int32), e.view(torch.int32)):
             bad = int((g.view(torch.int32) != e.view(torch.int32)).sum())
-            fail(f"topstats {name} at B={B} N=M={N}: {bad} entries differ "
-                 f"from the plain version")
+            fail(f"topstats {name} at B={B} N={N} M={M}: {bad} entries "
+                 f"differ from the plain version")
         err = max(err, float((g.double() - e.double()).abs().max()))
-    k_ms = time_ms(lambda: TM.topstats_cuda(*args), 20)
-    p_ms = time_ms(lambda: TM.topstats_reference(*args), 5)
+    out = {"max_abs_err": err}
+    if timed:
+        out["ms"] = time_ms(lambda: TM.topstats_cuda(*args), 20)
+        out["queued_ms"] = queued_ms(lambda: TM.topstats_cuda(*args))
+        out["plain_ms"] = time_ms(lambda: TM.topstats_reference(*args), 5)
+        a16 = args[0].to(torch.bfloat16)
+        b16 = args[1].to(torch.bfloat16).transpose(1, 2)
+        out["bmm_ms"] = queued_ms(lambda: torch.bmm(a16, b16))
+        out["bound_ms"], out["bound_by"] = topstats_bound_ms(B, N, M)
+        del a16, b16
     del args, got, exp
     torch.cuda.empty_cache()
-    return err, k_ms, p_ms
+    return out
 
 
 def sampson_sq(F, x1, x2):
@@ -627,17 +712,32 @@ def main():
         os.remove(lib)
     t0 = time.perf_counter()
     build.load("topstats.cu")
-    print(f"[phase 2] built topstats.cu with nvcc (sm_90a) in "
+    print(f"[phase 2] built topstats.cu (u8 wgmma, TMA) with nvcc for sm_90a in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
+    usage, found = inspect_library(lib)
+    print(f"[phase 2] cuobjdump: {'; '.join(usage)}; instructions {found}",
+          flush=True)
 
     # phase 3: kernel against plain, bit-equal, timed
     kstats = {}
-    for B, N in PHASE3_SHAPES:
-        err, k_ms, p_ms = compare_kernel(TM, synth, B, N)
-        kstats[(B, N)] = (err, k_ms, p_ms)
-        print(f"[phase 3] topstats B={B} N=M={N}: bit-equal to plain; "
-              f"kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms (median)",
-              flush=True)
+
+    def phase3(B, N, M):
+        k = kstats[(B, N, M)] = compare_kernel(TM, synth, B, N, M)
+        print(f"[phase 3] topstats B={B} N={N} M={M}: bit-equal to plain; "
+              f"kernel {k['ms']:.4f} ms as one launch between events, "
+              f"{k['queued_ms']:.4f} ms a queued launch; bound "
+              f"{k['bound_ms']:.4f} ms by {k['bound_by']} "
+              f"({100 * k['bound_ms'] / k['ms']:.1f}% and "
+              f"{100 * k['bound_ms'] / k['queued_ms']:.1f}% of those); "
+              f"plain {k['plain_ms']:.4f} ms; yardstick, "
+              f"not called by the port: torch.bmm of bf16 copies "
+              f"{k['bmm_ms']:.4f} ms", flush=True)
+
+    for shape in PHASE3_SHAPES:
+        phase3(*shape)
+    ragged = compare_kernel(TM, synth, *PHASE3_RAGGED, timed=False)
+    print(f"[phase 3] topstats B={PHASE3_RAGGED[0]} N={PHASE3_RAGGED[1]} "
+          f"M={PHASE3_RAGGED[2]} (ragged): bit-equal to plain", flush=True)
 
     # phases 4-10: the matching stage, BA, the reconstruction stage, the
     # circuit with loop closure, the correction path, triangulation
@@ -655,12 +755,13 @@ def main():
         shutil.rmtree(work, ignore_errors=True)
 
     k_main = IOF.bucket(max(counts), lo=256)
-    if (16, k_main) not in kstats:
-        kstats[(16, k_main)] = compare_kernel(TM, synth, 16, k_main)
-    err = max(v[0] for v in kstats.values())
-    _, k_ms, p_ms = kstats[(16, k_main)]
-    print(f"[summary] kernel summary below: times at the matching stage's chunk "
-          f"shape B=16 N=M={k_main}", flush=True)
+    if (16, k_main, k_main) not in kstats:
+        phase3(16, k_main, k_main)
+    err = max([v["max_abs_err"] for v in kstats.values()]
+              + [ragged["max_abs_err"]])
+    k = kstats[(16, k_main, k_main)]
+    print(f"[summary] kernel summary below: times and bound at the matching "
+          f"stage's chunk shape B=16 N=M={k_main}", flush=True)
     print(json.dumps({"kernels": [{
         "name": "topstats",
         "route": "cuda",
@@ -668,8 +769,12 @@ def main():
         "replaces": "xrsfm_tpu/ops/matching.py:33",
         "launches": launches["topstats_cuda"],
         "max_abs_err": err,
-        "ms": k_ms,
-        "plain_ms": p_ms,
+        "ms": k["ms"],
+        "queued_ms": k["queued_ms"],
+        "plain_ms": k["plain_ms"],
+        "bound_ms": k["bound_ms"],
+        "bound_by": k["bound_by"],
+        "library_ms": None,
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count(),

@@ -1,4 +1,5 @@
-"""The port's CUDA matcher kernel against its plain PyTorch version, and
+"""The port's CUDA matcher kernel (u8 wgmma dots fed by TMA) against its
+plain PyTorch version, and
 the port's solvers (bundle adjustment, the scale pose graph, rotation and
 translation averaging) on the card against the same solves on the CPU.
 
@@ -37,6 +38,9 @@ def _case(dev, seed, B, N, M):
     (1, 1, 1),
     (2, 65, 4097),
     (16, 2048, 2048),  # the 48-image arc run's chunk
+    (1, 64, 64),       # one tile, half of it past the end, on both sides
+    (2, 129, 8192),    # 64 streamed tiles: the ring wraps 16 times
+    (5, 8192, 128),    # one streamed tile in the row pass, 64 in the other
 ])
 def test_topstats_kernel_bit_equal_to_plain(cuda_device, B, N, M):
     """All four outputs bit-equal (tolerance 0): both compute exact integer
@@ -49,6 +53,40 @@ def test_topstats_kernel_bit_equal_to_plain(cuda_device, B, N, M):
         g, e = g.cpu().numpy(), e.cpu().numpy()
         assert g.dtype == e.dtype, name
         assert np.array_equal(g.view(np.uint32), e.view(np.uint32)), name
+
+
+def test_topstats_kernel_on_planted_ties(cuda_device):
+    """The ties of `synth.descriptor_tie_case` (across tiles, across the
+    lanes of a quad, within a lane, an all-masked pair on either side)
+    reach the kernel's own reduction: bit-equal, and the ties are there."""
+    args = [torch.from_numpy(a).to(cuda_device)
+            for a in synth.descriptor_tie_case()]
+    got = TM.topstats_cuda(*args)
+    torch.cuda.synchronize()
+    exp = TM.topstats_reference(*args)
+    for g, e, name in zip(got, exp, ("best", "second", "best_j", "col_arg")):
+        assert torch.equal(g.view(torch.int32), e.view(torch.int32)), name
+    assert (exp[0] == exp[1]).sum() >= 6
+
+
+def test_topstats_kernel_on_slices_of_a_pool(cuda_device):
+    """Inputs that are contiguous views into larger tensors at a non-zero
+    storage offset (pairs 3..4 of a pool of 8): the tensor maps are made
+    per call from the views' own pointers."""
+    pool = _case(cuda_device, 11, 8, 384, 320)
+    args = [t[3:5] for t in pool]
+    assert all(t.storage_offset() > 0 and t.is_contiguous() for t in args)
+    got = TM.topstats_cuda(*args)
+    torch.cuda.synchronize()
+    exp = TM.topstats_reference(*[t.clone() for t in args])
+    for g, e, name in zip(got, exp, ("best", "second", "best_j", "col_arg")):
+        assert torch.equal(g.view(torch.int32), e.view(torch.int32)), name
+    # the neighbouring pairs of the pool must not leak into the result
+    far = [t.clone() for t in pool]
+    far[0][2], far[0][5], far[1][2], far[1][5] = 255, 255, 255, 255
+    again = TM.topstats_cuda(*[t[3:5] for t in far])
+    for g, a in zip(got, again):
+        assert torch.equal(g, a)
 
 
 def test_topstats_dispatch_counts_kernel_launches(cuda_device):

@@ -71,10 +71,10 @@ _LAUNCH_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [
 
 
 def topstats_cuda(d1, d2, m1, m2):
-    """The CUDA kernel ``csrc/topstats.cu``: same contract as
-    `topstats_reference`, for contiguous CUDA tensors with D = 128.  Builds
-    the kernel on first use; raises on a bad input, a failed build or a
-    refused launch."""
+    """The CUDA kernel ``csrc/topstats.cu`` (u8 wgmma dots fed by TMA): same
+    contract as `topstats_reference`, for contiguous CUDA tensors with
+    D = 128.  Builds the kernel on first use; raises on a bad input, a
+    failed build or a refused launch."""
     if d1.dim() != 3 or d2.dim() != 3:
         raise ValueError("d1, d2 must be [B, N, 128] and [B, M, 128]")
     B, N, D = d1.shape
@@ -113,7 +113,9 @@ def topstats_cuda(d1, d2, m1, m2):
                  best.data_ptr(), sec.data_ptr(), bestj.data_ptr(),
                  carg.data_ptr(), B, N, M, stream)
     if err != 0:
-        raise RuntimeError(f"topstats kernel launch failed: CUDA error {err}")
+        # csrc/topstats.cu: a cudaError_t, or 100000 + the CUresult of a
+        # refused cuTensorMapEncodeTiled
+        raise RuntimeError(f"topstats kernel launch failed: error {err}")
     LAUNCHES["topstats_cuda"] += 1
     return best, sec, bestj, carg
 

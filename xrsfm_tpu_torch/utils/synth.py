@@ -218,6 +218,26 @@ def descriptor_case(seed, B, N, M):
     return d1, d2, m1, m2
 
 
+def descriptor_tie_case():
+    """`descriptor_case` at (3, 130, 300) with exact ties planted where the
+    CUDA kernel's reduction splits its work: the best column of some rows
+    duplicated across 128-column tiles, across the four lanes that share a
+    row and within one lane, the same for rows, one pair with every row
+    masked and (pair 2, by `descriptor_case`) one with every column
+    masked."""
+    d1, d2, m1, m2 = descriptor_case(77, 3, 130, 300)
+    for b in range(3):
+        d1[b, 7] = 255  # the largest dots there are: the copies tie
+        d2[b, [5, 133, 262]] = d1[b, 7]   # three tiles
+        d2[b, [10, 12]] = d1[b, 7]        # lanes 1 and 2 of one group
+        d2[b, [16, 17]] = d1[b, 7]        # one lane, e = 0 and 1
+        m2[b, [5, 10, 12, 16, 17, 133, 262]] = b != 2
+        d1[b, [3, 129]] = d1[b, 7]        # tied rows in two tiles
+        m1[b, [3, 7, 129]] = True
+    m1[1] = False
+    return d1, d2, m1, m2
+
+
 def ba_problem(n_cams=200, n_pts=20000, obs_per_pt=7, seed=0):
     """bench.make_ba_problem's KITTI-scale BA problem, in numpy and in COO
     order (no camera-major packing): the same generator calls in the same
