@@ -57,7 +57,28 @@ Phases, each reported on its own line:
      (rotation error < 4 deg, aligned center RMSE < 0.15);
  10. pipelines.run_triangulation.main on phase 4's bins and phase 7's
      model: poses unchanged bit for bit, at least 90% of phase 7's points,
-     mean reprojection error < 1 px, BA on CUDA.
+     mean reprojection error < 1 px, BA on CUDA;
+ 11. the unordered (1DSfM) regime: the landmark ring of
+     scripts/synth_features.py (500 genuine + 500 distractor frames, seed
+     1, per-image SIMPLE_RADIAL cameras with EXIF-grade focals; written by
+     utils/synth without JAX) through
+     pipelines.run_matching.main(..., "covisibility", device="cuda") (VLAD
+     retrieval, 5 seed pairs an image, expansion) and
+     pipelines.rec_1dsfm.main(..., device="cuda"); gates of
+     tests/test_unordered_scale.py: pair precision >= 0.95 against
+     ground-truth covisibility (>= 30 shared points), >= 90% of the
+     genuine frames registered, sim(3)-aligned ATE < 0.5% of the span,
+     median focal error < 1%; retrieval, every BA solve (intrinsics
+     solves included) and every averaging solve on CUDA.  Before it, the
+     matching alone on tests/test_unordered.py's 60-frame ring, gated
+     there on recall >= 0.70 (on the 500-frame ring the expansion stops
+     once every frame can register, and recall is printed, not gated);
+     on both, >= 99% of the verified inlier matches join two keypoints of
+     one scene point.  Prints the
+     stages' seconds and splits, the pairs against retrieval top-25's,
+     the solver counts, the kernel's launches and chunk shape, and the
+     float32 LU inverse of the final problem's 8x8 intrinsic Jacobi blocks
+     against float64.
 
 Any failure exits non-zero.  Without a CUDA device it exits 1 at once.
 The last two lines of standard output are the kernel summary (JSON: per
@@ -130,6 +151,16 @@ KITTI_MIN_REG = 238  # the 95% gate of tests/test_scale.py
 # passes it in 7 of 8 draws (0.07..0.59%, one at 2.73%), its eigh and svd
 # in float64 (ops/linalg).
 KITTI_MAX_ATE_PCT = 1.5
+# Phase 11: tests/test_unordered_scale.py's reference-scale gate (the JAX
+# package on a CPU: 500/500 registered, ATE 0.021% of span, focal median
+# error 4% -> 0.07%, about 35 minutes).
+UNORDERED = dict(n_frames=500, distractors=500, seed=1)
+# tests/test_unordered.py's scene, where the reference gates pair recall
+UNORDERED_SMALL = dict(n_frames=60, distractors=0, seed=1)
+UNORDERED_GATES = dict(precision=0.95, recall=0.70, registered=0.90,
+                       ate_pct=0.5, focal=0.01)
+GT_COVIS_POINTS = 30  # ground-truth covisible: >= 30 shared scene points
+GT_TRUE_MATCHES = 0.99  # share of verified inlier matches that are true
 
 
 def fail(msg):
@@ -685,6 +716,224 @@ def triangulation_phase(work, model, n_points):
     print("[phase 10] gates passed", flush=True)
 
 
+def intrinsic_block_precision(m):
+    """The float32 LU inverse of the 8x8 intrinsic Jacobi blocks of an
+    intrinsics GBA over every registered frame of m, on the card, against
+    the float64 inverse of the same blocks: (relative Frobenius errors
+    per block, condition numbers), both over the free entries (the frozen
+    ones are a separate diagonal of the damping alone)."""
+    from xrsfm_tpu_torch.mapper import ba_glue
+    from xrsfm_tpu_torch.ops import linalg
+    from xrsfm_tpu_torch.optim import ba
+
+    frames = np.nonzero(m.registered)[0]
+    p, _, _, _ = ba_glue.build_problem(m, frames, "cuda")
+    r, z, Jc, Jp = ba._residuals_and_jacobians(p, with_intri=True)
+    _, w = ba._robust_cost_and_weight(r, z, p.obs_w, 4.0)
+    U, V, W, _, _ = ba._build_normal_blocks(p, r, Jc, Jp, w)
+    lam = BA_OPTS["lam_init"]
+    eye14 = torch.eye(14, device="cuda")
+    eye3 = torch.eye(3, device="cuda")
+    Ud = U + lam * (U * eye14) + 1e-8 * eye14
+    Vinv = ba._inv3x3(V + lam * (V * eye3) + 1e-8 * eye3)
+    _, Si = ba._jacobi_blocks(p, Ud, Vinv, W,
+                              ba._TiedSpace(p.cam_kam, p.cam_q.shape[0]))
+    Si = Si[: int(p.cam_kam.max()) + 1]
+    eye8 = torch.eye(8, device="cuda").expand(len(Si), 8, 8)
+    inv32 = linalg.solve(Si, eye8).double()
+    inv64 = torch.linalg.solve(Si.double(), eye8.double())
+    free = torch.nonzero(ba._colmask_intri(p)[0] > 0)[:, 0]
+    sub = (slice(None), free[:, None], free[None, :])
+    rel = (torch.linalg.matrix_norm((inv32 - inv64)[sub])
+           / torch.linalg.matrix_norm(inv64[sub]))
+    cond = torch.linalg.cond(Si.double()[sub])
+    return rel.cpu().numpy(), cond.cpu().numpy()
+
+
+def unordered_matching(work, TM, n_frames, distractors, seed):
+    """Write the unordered landmark workspace and run
+    run_matching(covisibility) on the card from its features.  Returns
+    (workspace, matching output directory, precision, recall, kernel
+    launches, keypoints per frame); fails unless GT_TRUE_MATCHES of the
+    verified pairs' inlier matches join two keypoints of one scene
+    point."""
+    from xrsfm_tpu_torch.feature import matching as fmatch
+    from xrsfm_tpu_torch.feature import retrieval as RET
+    from xrsfm_tpu_torch.pipelines import run_matching as RM
+    from xrsfm_tpu_torch.utils import io_features as IOF
+    from xrsfm_tpu_torch.utils import synth
+
+    tag = f"unordered_{n_frames}_{distractors}"
+    ws = os.path.join(work, tag)
+    t0 = time.perf_counter()
+    names, obs, n_scene_pts = synth.write_unordered_workspace(
+        ws, "unordered", n_frames, seed, distractors)
+    n_total = len(names)
+    print(f"[phase 11] wrote the unordered landmark workspace: {n_frames} "
+          f"frames + {distractors} distractors (seed {seed}), "
+          f"{sum(len(o) for o in obs)} observations, in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    # ground-truth covisibility: shared scene points (distractor clutter is
+    # private to its frame)
+    vis = np.zeros((n_total, n_scene_pts), np.float32)
+    for f, ids in enumerate(obs):
+        vis[f, ids[ids < n_scene_pts]] = 1.0
+    covis = vis @ vis.T
+    np.fill_diagonal(covis, 0)
+    n_gt = int(np.count_nonzero(np.triu(covis >= GT_COVIS_POINTS, k=1)))
+
+    # the matching stage reads the workspace's features as its cache
+    out = os.path.join(work, tag + "_cov")
+    images = os.path.join(out, "images")
+    os.makedirs(images)
+    for n in names:
+        open(os.path.join(images, n), "w").close()
+    for f in ("ftr.bin", "size.bin"):
+        shutil.copy(os.path.join(ws, f), out)
+    TM.reset_launch_counts()
+    RET.reset_counts()
+    st = {}
+    t0 = time.perf_counter()
+    verified = RM.main(images, "", "covisibility", out, stats=st,
+                       device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(TM.LAUNCHES)
+    kps = [len(o) for o in obs]
+    k_chunk = IOF.bucket(max(kps), lo=256)
+    good = sum(1 for p in verified if covis[p.id1, p.id2] >= GT_COVIS_POINTS)
+    precision = good / max(len(verified), 1)
+    recall = good / max(n_gt, 1)
+    # inlier matches that join two keypoints of one scene point
+    n_inl = n_true = 0
+    for p in verified:
+        inl = p.inlier_matches()
+        n_inl += len(inl)
+        n_true += int(np.count_nonzero(obs[p.id1][inl[:, 0]]
+                                       == obs[p.id2][inl[:, 1]]))
+    true_share = n_true / max(n_inl, 1)
+    id2rank = IOF.load_retrieval_rank(os.path.join(out, "retrieval.txt"),
+                                      {n: i for i, n in enumerate(names)})
+    top25 = len(fmatch.retrieval_pairs(id2rank, 25))
+    print(f"[phase 11] run_matching covisibility ({n_frames} + "
+          f"{distractors}): {wall:.3f} s (VLAD "
+          f"retrieval {st['retrieval_s']:.3f} s; expansion host search "
+          f"{st['search_s']:.3f} s against match + verify "
+          f"{st['match_s']:.3f} s); pairs proposed {st['pairs_proposed']} "
+          f"(retrieval top-25 would propose {top25}), verified "
+          f"{len(verified)}, ground truth {n_gt}; precision {precision:.4f}, "
+          f"recall {recall:.4f}, true inlier matches {true_share:.5f} of "
+          f"{n_inl}; topstats launches {launches['topstats_cuda']} "
+          f"(plain {launches['topstats_plain']}) at chunk shape (16, "
+          f"{k_chunk}, {k_chunk}); keypoints per frame {min(kps)}.."
+          f"{max(kps)}", flush=True)
+    if launches["topstats_cuda"] <= 0 or launches["topstats_plain"]:
+        fail(f"unordered matching: launches {launches}")
+    if RET.COUNTS["vlad_cuda"] != 1 or RET.COUNTS["vlad_cpu"]:
+        fail(f"unordered matching: retrieval counts {RET.COUNTS}")
+    if true_share < GT_TRUE_MATCHES:
+        fail(f"unordered matching: true inlier matches {true_share:.5f}")
+    return ws, out, precision, recall, launches, kps
+
+
+def unordered_phase(work, TM, n_frames, distractors, seed, gates):
+    """Phase 11: the unordered regime, images' features to a model.
+    First run_matching(covisibility) on tests/test_unordered.py's
+    60-frame ring, gated on pair recall; then on the large scene
+    run_matching(covisibility) and rec_1dsfm on the card, and their gates
+    (pair precision; recall is printed: the expansion stops once every
+    frame can register, so on a dense ring of 500 frames it verifies a
+    small share of the covisible pairs, by design).
+    Returns (kernel launches, keypoints per frame) of the large scene."""
+    from xrsfm_tpu_torch.mapper import ba_glue
+    from xrsfm_tpu_torch.ops.umeyama import ate_rmse
+    from xrsfm_tpu_torch.pipelines import rec_1dsfm
+    from xrsfm_tpu_torch.utils import geometry as G
+
+    # on the small ring a twentieth of the verified pairs share 15 to 29
+    # scene points (true matches under the 30-point line), so its
+    # precision is printed; the true-match share holds the pairs there
+    _, _, _, recall, launches_s, _ = unordered_matching(
+        work, TM, **UNORDERED_SMALL)
+    if recall < gates["recall"]:
+        fail(f"unordered matching ({UNORDERED_SMALL}): recall {recall:.4f}")
+    ws, out, precision, _, launches, kps = unordered_matching(
+        work, TM, n_frames, distractors, seed)
+    launches["topstats_cuda"] += launches_s["topstats_cuda"]
+    if precision < gates["precision"]:
+        fail(f"unordered matching: precision {precision:.4f}")
+
+    reset_solver_counts()
+    for k in ("build", "solve_fetch", "writeback", "calls"):
+        ba_glue.PROF[k] = 0
+    st = {}
+    t0 = time.perf_counter()
+    m = rec_1dsfm.main(out, os.path.join(ws, "camera_info.txt"),
+                       os.path.join(work, "unordered_model"), stats=st,
+                       device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = solver_counts()[1]
+    if m is None:
+        fail("unordered: rec_1dsfm failed")
+    ms = st["mapper"]
+    print("[phase 11] rec_1dsfm stage seconds " + json.dumps({
+        "total": round(wall, 3), **{k[5:]: round(v, 3) for k, v in
+                                    vars(ms).items() if k.startswith("time_")}
+    }) + f"; MapperStats registered {ms.registered}, failed {ms.failed}, "
+        f"tracks {ms.tracks}, polish {ms.polish}; run_ba " + json.dumps(
+            {k: (round(v, 3) if isinstance(v, float) else v)
+             for k, v in ba_glue.PROF.items()}), flush=True)
+    print(f"[phase 11] solver counts {json.dumps(counts)}", flush=True)
+    check_no_cpu_solve("unordered", counts)
+    if counts["ba"]["intri_solves_cuda"] == 0:
+        fail("unordered: no intrinsics BA solve on CUDA")
+    if counts["rot_avg"]["solves_cuda"] == 0:
+        fail("unordered: no rotation-averaging solve on CUDA")
+
+    gt = read_gt(os.path.join(ws, "gt_poses.txt"))
+    gt_f = {}
+    with open(os.path.join(ws, "gt_cameras.txt")) as f:
+        for line in f:
+            p = line.split()
+            gt_f[p[0]] = float(p[1])
+    start_f = {}
+    with open(os.path.join(ws, "camera_info.txt")) as f:
+        for line in f:
+            p = line.split()
+            start_f[p[0]] = float(p[4])
+    reg = np.nonzero(m.registered)[0]
+    reg_genuine = int(np.count_nonzero(reg < n_frames))
+    est = G.pose_center_np(m.q[reg], m.t[reg])
+    ref = np.stack([G.pose_center_np(*gt[m.names[i]]) for i in reg])
+    span = float(np.linalg.norm(ref.max(0) - ref.min(0)))
+    ate_pct = 100.0 * ate_rmse(ref, est) / span
+    f_err = np.array([abs(m.cameras[int(m.cam_of_frame[i])][0]
+                          - gt_f[m.names[i]]) / gt_f[m.names[i]] for i in reg])
+    f_err0 = np.array([abs(start_f[m.names[i]] - gt_f[m.names[i]])
+                       / gt_f[m.names[i]] for i in reg])
+    rel, cond = intrinsic_block_precision(m)
+    print(f"[phase 11] rec_1dsfm (CUDA): {len(reg)} registered "
+          f"({reg_genuine}/{n_frames} genuine), ATE {ate_pct:.5f}% of span "
+          f"{span:.4f}, median focal error {float(np.median(f_err)):.5f} "
+          f"(start {float(np.median(f_err0)):.5f}), mean "
+          f"{float(f_err.mean()):.5f}; 8x8 intrinsic Jacobi blocks of the "
+          f"final map ({len(rel)}; free entries f, cx, cy, k1): float32 LU "
+          f"inverse against float64, "
+          f"relative error median {float(np.median(rel)):.3e} max "
+          f"{float(rel.max()):.3e}, condition number median "
+          f"{float(np.median(cond)):.3e} max {float(cond.max()):.3e}",
+          flush=True)
+    if reg_genuine < gates["registered"] * n_frames:
+        fail(f"unordered: {reg_genuine}/{n_frames} genuine frames registered")
+    if not ate_pct < gates["ate_pct"]:
+        fail(f"unordered: ATE {ate_pct:.5f}% of span")
+    if not float(np.median(f_err)) < gates["focal"]:
+        fail(f"unordered: median focal error {float(np.median(f_err)):.5f}")
+    print("[phase 11] gates passed", flush=True)
+    return launches, kps
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke run needs a GPU")
@@ -739,8 +988,9 @@ def main():
     print(f"[phase 3] topstats B={PHASE3_RAGGED[0]} N={PHASE3_RAGGED[1]} "
           f"M={PHASE3_RAGGED[2]} (ragged): bit-equal to plain", flush=True)
 
-    # phases 4-10: the matching stage, BA, the reconstruction stage, the
-    # circuit with loop closure, the correction path, triangulation
+    # phases 4-11: the matching stage, BA, the reconstruction stage, the
+    # circuit with loop closure, the correction path, triangulation, the
+    # unordered regime
     scratch = os.path.dirname(build.BUILD_DIR)  # build/, git-ignored
     os.makedirs(scratch, exist_ok=True)
     work = tempfile.mkdtemp(prefix="chip_smoke_", dir=scratch)
@@ -751,23 +1001,34 @@ def main():
         kitti_phase(work)
         correction_phase()
         triangulation_phase(work, model, n_points)
+        launches11, kps11 = unordered_phase(work, TM, gates=UNORDERED_GATES,
+                                            **UNORDERED)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
     k_main = IOF.bucket(max(counts), lo=256)
-    if (16, k_main, k_main) not in kstats:
-        phase3(16, k_main, k_main)
+    k_11 = IOF.bucket(max(kps11), lo=256)
+    for kk in (k_main, k_11):
+        if (16, kk, kk) not in kstats:
+            phase3(16, kk, kk)
     err = max([v["max_abs_err"] for v in kstats.values()]
               + [ragged["max_abs_err"]])
     k = kstats[(16, k_main, k_main)]
-    print(f"[summary] kernel summary below: times and bound at the matching "
-          f"stage's chunk shape B=16 N=M={k_main}", flush=True)
+    k11 = kstats[(16, k_11, k_11)]
+    print(f"[summary] topstats at phase 11's chunk shape B=16 N=M={k_11}: "
+          f"{launches11['topstats_cuda']} launches, {k11['ms']:.4f} ms as one "
+          f"launch, {k11['queued_ms']:.4f} ms queued, bound "
+          f"{k11['bound_ms']:.5f} ms by {k11['bound_by']}, plain "
+          f"{k11['plain_ms']:.4f} ms", flush=True)
+    print(f"[summary] kernel summary below: launches of phases 4 and 11; "
+          f"times and bound at phase 4's chunk shape B=16 N=M={k_main}",
+          flush=True)
     print(json.dumps({"kernels": [{
         "name": "topstats",
         "route": "cuda",
         "source": "xrsfm_tpu_torch/csrc/topstats.cu",
         "replaces": "xrsfm_tpu/ops/matching.py:33",
-        "launches": launches["topstats_cuda"],
+        "launches": launches["topstats_cuda"] + launches11["topstats_cuda"],
         "max_abs_err": err,
         "ms": k["ms"],
         "queued_ms": k["queued_ms"],

@@ -22,7 +22,9 @@ from xrsfm_tpu_torch.utils import synth
 
 torch.set_num_threads(2)
 
-_FIELDS = [f.name for f in dataclasses.fields(TB.BAProblem)]
+# the fields every problem has (the intrinsics metadata is optional)
+_FIELDS = [f.name for f in dataclasses.fields(TB.BAProblem)
+           if f.default is dataclasses.MISSING]
 
 
 def _problem(seed=0, n_cams=12, n_pts=300, distorted=True):

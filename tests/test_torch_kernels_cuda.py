@@ -1,7 +1,9 @@
 """The port's CUDA matcher kernel (u8 wgmma dots fed by TMA) against its
 plain PyTorch version, and
-the port's solvers (bundle adjustment, the scale pose graph, rotation and
-translation averaging) on the card against the same solves on the CPU.
+the port's solvers (bundle adjustment with and without intrinsics, the
+scale pose graph, rotation and translation averaging) and VLAD retrieval
+on the card against the same work on the CPU, and the float32 inverse of
+the intrinsics solve's 8x8 Jacobi blocks against float64.
 
 Needs a CUDA device and nvcc; skips elsewhere.  On a machine with a GPU
 (and no JAX, which the repo's conftest imports), run:
@@ -307,3 +309,119 @@ def test_rotation_and_translation_averaging_on_cuda_match_cpu(cuda_device):
     assert GP.COUNTS == {"solves_cuda": 1, "solves_cpu": 0}
     span = float(np.linalg.norm(c_gt.max(0) - c_gt.min(0)))
     np.testing.assert_allclose(c_gpu, c_cpu, atol=1e-3 * span)
+
+
+def _intri_problem_np(n_cams=8, n_pts=200, seed=60, k1=-0.08):
+    """tests/test_ba.py's per-image intrinsics problem without JAX: a
+    make_scene rig seen through SIMPLE_RADIAL cameras (f 500, k1) with
+    0.3 px noise, each frame its own intrinsic block, focals off by up to
+    5% and k1 by up to 0.04."""
+    from synthetic import make_scene
+    from xrsfm_tpu_torch.utils import camera as Cam
+
+    s = make_scene(n_cams=n_cams, n_pts=n_pts, seed=seed)
+    rng = np.random.default_rng(seed + 1)
+    gt = Cam.canonicalize_params(Cam.SIMPLE_RADIAL, [500.0, 320.0, 240.0, k1])
+    uv = Cam.normalized_to_image(torch.tensor(gt), torch.tensor(s["uv"]))
+    uv = uv.numpy() + rng.normal(scale=0.3, size=uv.shape)
+    intri = np.tile(gt, (n_cams, 1))
+    per = 1.0 + rng.uniform(-0.05, 0.05, n_cams)
+    intri[:, :2] *= per[:, None]
+    intri[:, 4] += rng.uniform(-0.04, 0.04, n_cams)
+    free, tie = Cam.intri_free_mask(Cam.SIMPLE_RADIAL)
+    fix_cam = np.zeros(n_cams, bool)
+    fix_cam[0] = True
+    fix_trans = np.zeros(n_cams, bool)
+    fix_trans[1] = True
+    return dict(
+        cam_q=s["q"], cam_t=s["t"], cam_intri=intri, points=s["xyz"],
+        obs_uv=uv.reshape(-1, 2), obs_cam=np.repeat(np.arange(n_cams), n_pts),
+        obs_pt=np.tile(np.arange(n_pts), n_cams),
+        obs_w=np.ones(n_cams * n_pts), fix_cam=fix_cam, fix_trans=fix_trans,
+        fix_pt=np.zeros(n_pts, bool), cam_kam=np.arange(n_cams),
+        fix_intri=np.tile(~free, (n_cams, 1)), tie_f=np.full(n_cams, tie),
+    ), gt
+
+
+def test_intrinsics_solve_on_cuda_matches_cpu(cuda_device):
+    """An intrinsics-refining solve (per-image blocks, 40 LM iterations) on
+    the card against the same solve on the CPU: final cost within rtol
+    1e-3, focals within rtol 1e-4 and k1 within 1e-3, counted as an
+    intrinsics solve on CUDA."""
+    from xrsfm_tpu_torch.optim import ba
+
+    d, _ = _intri_problem_np()
+    opts = ba.BAOptions(max_iters=40, huber_px=4.0, optimize_intrinsics=True)
+    cpu, i_cpu = ba.solve_ba(ba.BAProblem.from_numpy("cpu", **d), opts)
+    ba.reset_counts()
+    gpu, i_gpu = ba.solve_ba(ba.BAProblem.from_numpy(cuda_device, **d), opts)
+    assert ba.COUNTS["intri_solves_cuda"] == 1
+    assert ba.COUNTS["solves_cpu"] == ba.COUNTS["intri_solves_cpu"] == 0
+    assert i_gpu["final_cost"] == pytest.approx(i_cpu["final_cost"], rel=1e-3)
+    g, c = gpu.cam_intri.cpu().numpy(), cpu.cam_intri.numpy()
+    np.testing.assert_allclose(g[:, :2], c[:, :2], rtol=1e-4)
+    np.testing.assert_allclose(g[:, 4], c[:, 4], atol=1e-3)
+
+
+def test_intrinsic_jacobi_blocks_float32_inverse_on_cuda(cuda_device):
+    """The 8x8 intrinsic Jacobi blocks of that problem, LU-inverted in
+    float32 on the card (ops/linalg.solve, as the solver does), against
+    the float64 inverse, over the free entries (f, cx, cy, k1): no worse
+    than 2x the CPU's float32 LAPACK inverse of the same blocks (+1e-7)."""
+    from xrsfm_tpu_torch.ops import linalg
+    from xrsfm_tpu_torch.optim import ba
+
+    d, _ = _intri_problem_np()
+    errs = []
+    for dev in ("cpu", cuda_device):
+        p = ba.BAProblem.from_numpy(dev, **d)
+        r, z, Jc, Jp = ba._residuals_and_jacobians(p, with_intri=True)
+        _, w = ba._robust_cost_and_weight(r, z, p.obs_w, 4.0)
+        U, V, W, _, _ = ba._build_normal_blocks(p, r, Jc, Jp, w)
+        eye14 = torch.eye(14, device=U.device)
+        eye3 = torch.eye(3, device=U.device)
+        Ud = U + 1e-4 * (U * eye14) + 1e-8 * eye14
+        Vinv = ba._inv3x3(V + 1e-4 * (V * eye3) + 1e-8 * eye3)
+        _, Si = ba._jacobi_blocks(p, Ud, Vinv, W,
+                                  ba._TiedSpace(p.cam_kam, len(p.cam_q)))
+        eye8 = torch.eye(8, device=U.device).expand(len(Si), 8, 8)
+        inv64 = torch.linalg.solve(Si.double(), eye8.double())
+        inv32 = linalg.solve(Si, eye8).double()
+        free = [0, 2, 3, 4]
+        sub = (slice(None), torch.tensor(free)[:, None],
+               torch.tensor(free)[None, :])
+        errs.append(float((torch.linalg.matrix_norm((inv32 - inv64)[sub])
+                           / torch.linalg.matrix_norm(inv64[sub])).max()))
+    assert errs[1] <= 2.0 * errs[0] + 1e-7, errs
+
+
+def test_vlad_ranks_on_cuda_equal_cpu(cuda_device):
+    """VLAD retrieval on the card against the CPU, on three scenes of
+    seeded RootSIFT-like descriptors: the same ranks (a stable sort: ties
+    to the lower index on both), vectors and similarities within 1e-5,
+    counted by device."""
+    from xrsfm_tpu_torch.feature import retrieval as RET
+
+    rng = np.random.default_rng(1)
+    descs = []
+    for _ in range(3):
+        words = np.abs(rng.normal(size=(6, 128)))
+        words /= np.linalg.norm(words, axis=1, keepdims=True)
+        for _ in range(5):
+            x = np.abs(words[rng.integers(0, 6, 150)]
+                       + rng.normal(scale=0.02, size=(150, 128)))
+            x /= np.linalg.norm(x, axis=1, keepdims=True)
+            descs.append(np.minimum(512.0 * x, 255.0).astype(np.uint8))
+    descs.append(descs[4].copy())  # an exact duplicate: tied similarities
+    r_cpu, v_cpu = RET.build_retrieval(descs, num_words=16, topk=6,
+                                       device="cpu")
+    RET.reset_counts()
+    r_gpu, v_gpu = RET.build_retrieval(descs, num_words=16, topk=6,
+                                       device=cuda_device)
+    assert RET.COUNTS == {"vlad_cuda": 1, "vlad_cpu": 0}
+    # before the signed square root, which amplifies the rounding of
+    # components that are zero in exact arithmetic
+    np.testing.assert_allclose(np.sign(v_gpu) * v_gpu * v_gpu,
+                               np.sign(v_cpu) * v_cpu * v_cpu, atol=1e-5)
+    np.testing.assert_allclose(v_gpu @ v_gpu.T, v_cpu @ v_cpu.T, atol=1e-5)
+    np.testing.assert_array_equal(r_gpu, r_cpu)

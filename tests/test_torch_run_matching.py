@@ -75,6 +75,7 @@ def test_from_images_same_pairs(scene):
     ("retrieval", {}),
     # a short window, so that the loop-closure probes add pairs
     ("sequential", {"seq_window": 3, "seq_loop_stride": 2}),
+    ("covisibility", {}),
 ])
 def test_with_retrieval_ranks_same_pairs(scene, mtype, opts):
     """With the scene's retrieval.txt, from the JAX ftr.bin: the same
@@ -117,17 +118,61 @@ def test_cli_run_matching_writes_same_fp(scene, tmp_path):
         assert f.read() == g.read()
 
 
+def test_self_retrieval_same_ranks_and_pairs(scene, tmp_path):
+    """Retrieval matching without a retrieval.txt, from the JAX ftr.bin:
+    the port ranks the images by VLAD as the JAX package does (the cached
+    retrieval.txt byte-equal) and verifies the same pairs."""
+    _, images, jax_out, _, _ = scene
+    outs = []
+    for k, run in enumerate((JRM.main, TRM.main)):
+        out = str(tmp_path / f"r{k}")
+        os.makedirs(out)
+        shutil.copy(os.path.join(jax_out, "ftr.bin"), out)
+        kw = {"device": "cpu"} if k else {}
+        run(images, "", "retrieval", out, **kw)
+        outs.append(out)
+    with open(os.path.join(outs[0], "retrieval.txt"), "rb") as f, \
+            open(os.path.join(outs[1], "retrieval.txt"), "rb") as g:
+        assert f.read() == g.read()
+    pj, pt = _pairs(outs[0]), _pairs(outs[1])
+    assert len(pj) >= 10 and set(pj) == set(pt)
+
+
+def test_retrieve_cli_writes_jax_retrieval_text(scene, tmp_path):
+    """The retrieve stage, through the port's CLI twin, from the JAX
+    ftr.bin: the JAX package's retrieve.main writes the same
+    retrieval.txt bytes."""
+    from xrsfm_tpu.pipelines import retrieve as JRV
+
+    _, images, jax_out, _, _ = scene
+    outs = []
+    for k in range(2):
+        out = str(tmp_path / f"v{k}")
+        os.makedirs(out)
+        shutil.copy(os.path.join(jax_out, "ftr.bin"), out)
+        outs.append(out)
+    JRV.main(images, outs[0], topk=3, num_words=8)
+    TCLI.main(["retrieve", images, outs[1], "--topk", "3", "--num_words", "8",
+               "--device", "cpu"])
+    with open(os.path.join(outs[0], "retrieval.txt"), "rb") as f, \
+            open(os.path.join(outs[1], "retrieval.txt"), "rb") as g:
+        got = g.read()
+        assert f.read() == got and len(got.splitlines()) == 6 * 3
+
+
 def test_main_without_gpu_raises_and_unported_types_raise(scene, tmp_path):
-    """device="cuda" without a GPU is an error, not a CPU run; matching
-    types that are not ported yet raise NotImplementedError."""
+    """device="cuda" without a GPU is an error, not a CPU run; an unknown
+    matching type is an error; ORB features, not ported yet, raise
+    NotImplementedError naming their ROADMAP.md item."""
     _, images, _, _, _ = scene
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             TRM.main(images, "", "sequential", str(tmp_path / "x"),
                      device="cuda")
         assert not os.path.exists(tmp_path / "x")
-    with pytest.raises(NotImplementedError):
-        TRM.main(images, "", "covisibility", str(tmp_path / "c"),
-                 device="cpu")
-    with pytest.raises(NotImplementedError):
-        TRM.main(images, "", "retrieval", str(tmp_path / "r"), device="cpu")
+    with pytest.raises(ValueError, match="unknown matching type"):
+        TRM.main(images, "", "exhaustive", str(tmp_path / "c"), device="cpu")
+    with pytest.raises(NotImplementedError, match="item 10"):
+        TRM.get_features(images, str(tmp_path / "ftr.bin"),
+                         IOF.load_image_names(images), feature_type="orb",
+                         device="cpu")

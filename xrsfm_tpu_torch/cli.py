@@ -2,6 +2,8 @@
 
 Usage: python -m xrsfm_tpu_torch.cli run_matching <images_dir>
        <retrieval_path> <matching_type> <output_dir> [--device cuda]
+       python -m xrsfm_tpu_torch.cli retrieve <images_dir> <output_dir>
+       [--topk 25] [--num_words 64] [--device cuda]
        python -m xrsfm_tpu_torch.cli run_reconstruction <bin_dir>
        <camera_txt> <output_dir> [--init_id1 N --init_id2 N]
        [--correct_pose] [--device cuda]
@@ -9,10 +11,12 @@ Usage: python -m xrsfm_tpu_torch.cli run_matching <images_dir>
        <model_dir> <output_dir> [--device cuda]
        python -m xrsfm_tpu_torch.cli rec_kitti <bin_dir> <seq_name>
        <output_dir> [--timestamp_path times.txt] [--device cuda]
+       python -m xrsfm_tpu_torch.cli rec_1dsfm <bin_dir> <camera_info>
+       <output_dir> [--device cuda]
 
 The JAX package's `xrsfm_tpu.cli` commands of the same names (reference
 run_matching.cc, run_reconstruction.cc, run_triangulation.cc,
-rec_kitti.cc).  --device names the device explicitly; "cuda" without a GPU
+rec_kitti.cc, rec_1dsfm.cc; retrieve has no reference binary).  --device names the device explicitly; "cuda" without a GPU
 is an error.
 """
 
@@ -41,6 +45,13 @@ def main(argv=None):
     p.add_argument("output_dir")
     _device_arg(p)
 
+    p = sub.add_parser("retrieve", help="retrieval.txt from images (VLAD)")
+    p.add_argument("images_dir")
+    p.add_argument("output_dir")
+    p.add_argument("--topk", type=int, default=25)
+    p.add_argument("--num_words", type=int, default=64)
+    _device_arg(p)
+
     p = sub.add_parser("run_reconstruction", help="incremental reconstruction")
     p.add_argument("bin_dir", help="directory with ftr.bin and fp.bin")
     p.add_argument("camera_txt", help="single-camera cameras.txt")
@@ -65,12 +76,24 @@ def main(argv=None):
                    help="KITTI times.txt for the TUM trajectory")
     _device_arg(p)
 
+    p = sub.add_parser("rec_1dsfm", help="1DSfM unordered reconstruction")
+    p.add_argument("bin_dir", help="directory with ftr.bin and fp.bin")
+    p.add_argument("camera_info_path",
+                   help="per-image SIMPLE_RADIAL camera_info.txt")
+    p.add_argument("output_dir")
+    _device_arg(p)
+
     args = ap.parse_args(argv)
     if args.cmd == "run_matching":
         from .pipelines import run_matching as M
 
         M.main(args.images_dir, args.retrieval_path, args.matching_type,
                args.output_dir, device=args.device)
+    elif args.cmd == "retrieve":
+        from .pipelines import retrieve as RV
+
+        RV.main(args.images_dir, args.output_dir, args.topk, args.num_words,
+                device=args.device)
     elif args.cmd == "run_reconstruction":
         from .pipelines import run_reconstruction as R
 
@@ -89,6 +112,12 @@ def main(argv=None):
 
         if K.main(args.bin_dir, args.seq_name, args.output_dir,
                   args.timestamp_path, device=args.device) is None:
+            sys.exit(1)
+    elif args.cmd == "rec_1dsfm":
+        from .pipelines import rec_1dsfm as U
+
+        if U.main(args.bin_dir, args.camera_info_path, args.output_dir,
+                  device=args.device) is None:
             sys.exit(1)
 
 

@@ -3,7 +3,8 @@ xrsfm_tpu/mapper/ba_glue.py; reference: BASolver::GBA/LBA set-up,
 src/optimization/ba_solver.cc:358-638).
 
 Builds an unpadded COO BAProblem on the requested device for a local or
-global solve, and writes the optimized poses and points back in float64.
+global solve, and writes the optimized poses and points back in float64
+(and, from an intrinsics-refining solve, the cameras).
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ import numpy as np
 
 from ..base.map import SfMMap
 from ..optim.ba import BAOptions, BAProblem, solve_ba
+from ..utils import camera as Cam
 from ..utils.io_features import bucket
 
 
@@ -104,6 +106,19 @@ def build_problem(
         for f in gf[1:2]:
             fix_trans[fidx[f]] = True
 
+    # intrinsics metadata: one intrinsic block per physical camera
+    # (reference GBA frees camera_param per Camera, ba_solver.cc:330-356);
+    # read only by intrinsics-refining solves
+    cids = m.cam_of_frame[frames]
+    uniq, cam_kam = np.unique(cids, return_inverse=True)
+    fix_intri = np.ones((nf, 8), bool)
+    tie_f = np.zeros(nf, bool)
+    for cid in uniq:
+        free, tie = Cam.intri_free_mask(m.camera_models[int(cid)][0])
+        rows = cids == cid
+        fix_intri[rows] = ~free
+        tie_f[rows] = tie
+
     prob = BAProblem.from_numpy(
         device,
         cam_q=m.q[frames],
@@ -118,6 +133,9 @@ def build_problem(
         fix_trans=fix_trans,
         fix_pt=(freeze_tracks[tracks] if freeze_tracks is not None
                 else np.zeros(nt, bool)),
+        cam_kam=cam_kam,
+        fix_intri=fix_intri,
+        tie_f=tie_f,
     )
     return prob, frames, tracks, n_obs
 
@@ -138,11 +156,10 @@ def run_ba(
     *,
     device,
 ) -> Optional[BAGlueResult]:
-    """Build, solve on `device`, write back."""
-    if optimize_intrinsics:
-        raise NotImplementedError(
-            "intrinsics BA is not ported yet (ROADMAP.md, Still to port, "
-            "item 3)")
+    """Build, solve on `device`, write back.  optimize_intrinsics frees the
+    camera intrinsics (reference: GBA frees camera_param,
+    ba_solver.cc:330-356; LBA pins it :389) and writes the refined
+    cameras back through update_camera, which refreshes kps_norm."""
     if mesh is not None:
         raise NotImplementedError(
             "sharded BA over a device mesh is not ported yet (ROADMAP.md, "
@@ -159,6 +176,8 @@ def run_ba(
     if prob is None:
         return None
     t0 = time.perf_counter()
+    if optimize_intrinsics:
+        opts = dataclasses.replace(opts, optimize_intrinsics=True)
     sol, info = solve_ba(prob, opts)
     q = sol.cam_q.cpu().numpy().astype(np.float64)
     t = sol.cam_t.cpu().numpy().astype(np.float64)
@@ -170,6 +189,11 @@ def run_ba(
     m.q[fr] = q[upd] / np.linalg.norm(q[upd], axis=1, keepdims=True)
     m.t[fr] = t[upd]
     m.track_xyz[tracks] = pts
+    if optimize_intrinsics:
+        intri = sol.cam_intri.cpu().numpy().astype(np.float64)
+        cids = m.cam_of_frame[frames]
+        for cid in np.unique(cids):
+            m.update_camera(int(cid), intri[int(np.argmax(cids == cid))])
     PROF["writeback"] += time.perf_counter() - t0
     return BAGlueResult(
         frame_ids=frames,

@@ -5,12 +5,13 @@ select next, register, triangulate, filter, merge, LBA, periodic KGBA).
 
 The outer loop is host Python, since the next frame depends on the map
 state (SURVEY.md §7.3); every numeric step inside is a batched call on
-the mapper's device.  The port covers pose-only BA on one device, with
-loop correction (correct_pose, mapper/error_correct) and the trial-gated
+the mapper's device.  The port covers BA on one device, pose-only or
+intrinsics-refining (refine_intrinsics, the 1DSfM regime), with loop
+correction (correct_pose, mapper/error_correct) and the trial-gated
 global pose polish (global_polish / rot_avg_polish, optim/global_pose and
 optim/rot_avg, followed by a resurrection round for frames that failed
-against the drifted map).  Intrinsics refinement, several devices and
-snapshots raise NotImplementedError naming their ROADMAP.md item.
+against the drifted map).  Several devices and snapshots raise
+NotImplementedError naming their ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -59,7 +60,10 @@ class MapperOptions:
     # last-resort visibility floor for frames reachable through a single
     # pair (the reference's TryLocate registers from 12, pnp.cc:133-168)
     min_visible_floor: int = 12
-    refine_intrinsics: bool = False  # not ported
+    # free the camera intrinsics in global BA (reference: GBA frees
+    # camera_param, ba_solver.cc:330-356; LBA pins it :389); rec_1dsfm
+    # turns it on (noisy per-image EXIF focals, rec_1dsfm.cc:46-55)
+    refine_intrinsics: bool = False
     # register up to this many covisibility-ready frames per outer
     # iteration in one batched pass (1 = sequential, as the reference)
     batch_registration: int = 8
@@ -75,7 +79,6 @@ class MapperOptions:
 
 # options outside the ported configuration, with their ROADMAP.md item
 _NOT_PORTED = (
-    ("refine_intrinsics", "Still to port, item 3: intrinsics BA"),
     ("snapshot_every", "Still to port, item 6: snapshot/resume"),
 )
 
@@ -149,6 +152,7 @@ class IncrementalMapper:
         self.device = resolve_device(device)
         self.stats = MapperStats()
         self._rejections = {}
+        self._intri_gba_warm = False
 
     def _log(self, msg: str):
         if self.opts.verbose:
@@ -331,13 +335,28 @@ class IncrementalMapper:
                           f"reg {n_reg}")
             if n_reg >= o.gba_growth * num_reg_at_gba:
                 t0 = time.time()
+                if o.refine_intrinsics and not self._intri_gba_warm:
+                    # graduated non-convexity for the first intrinsics
+                    # GBA: with EXIF-grade focal errors most residuals lie
+                    # beyond the Huber knee and LM stalls on a plateau, so
+                    # one wide-knee pass precedes the robust solve
+                    self._intri_gba_warm = True
+                    KF.kgba(m, BAOptions(max_iters=o.gba_iters, huber_px=32.0),
+                            tri_opts=None, optimize_intrinsics=True,
+                            device=dev)
                 gres = KF.kgba(m, BAOptions(max_iters=o.gba_iters, huber_px=4.0),
-                               tri_opts=o.tri, device=dev)
+                               tri_opts=o.tri,
+                               optimize_intrinsics=o.refine_intrinsics,
+                               device=dev)
                 self.stats.time_gba += time.time() - t0
                 num_reg_at_gba = n_reg
                 if gres is not None:
                     self._log(f"KGBA over {n_reg} frames: cost "
                               f"{gres.initial_cost:.1f} -> {gres.final_cost:.1f}")
+                if o.refine_intrinsics:
+                    # refined cameras invalidate registration failures
+                    # judged under the old intrinsics
+                    self._post_correction_amnesty(m)
             if o.max_registrations and self.stats.registered >= o.max_registrations:
                 self._log(f"stopping after {self.stats.registered} "
                           f"registrations (max_registrations)")
@@ -383,15 +402,28 @@ class IncrementalMapper:
                        device=dev)
         self.stats.time_lba += time.time() - t0
 
-    def _polish_gba_rounds(self, m: SfMMap, reg_frames, tag: str, hard: bool):
+    def _polish_gba_rounds(self, m: SfMMap, reg_frames, tag: str, hard: bool,
+                           schedule_intrinsics: bool = False):
         """Polish GBA; after loop corrections or a pose rewrite ("hard")
         two rounds, since each run_ba restarts the damping, which lets LM
-        leave the high-lambda plateau the perturbation parks it on."""
-        polish = BAOptions(max_iters=2 * self.opts.gba_iters, huber_px=4.0,
+        leave the high-lambda plateau the perturbation parks it on.
+        schedule_intrinsics first runs one wide-knee and two robust
+        intrinsics GBAs, so that late cameras' intrinsics can still reach
+        the global basin (each restart of the damping escapes a plateau of
+        the slow focal / k1 directions)."""
+        o = self.opts
+        if schedule_intrinsics:
+            for huber in (32.0, 4.0, 4.0):
+                ba_glue.run_ba(m, reg_frames,
+                               BAOptions(max_iters=o.gba_iters, huber_px=huber),
+                               optimize_intrinsics=True, device=self.device)
+        polish = BAOptions(max_iters=2 * o.gba_iters, huber_px=4.0,
                            precise=hard)
         pres = None
         for r in range(2 if hard else 1):
-            pres = ba_glue.run_ba(m, reg_frames, polish, device=self.device)
+            pres = ba_glue.run_ba(m, reg_frames, polish,
+                                  optimize_intrinsics=o.refine_intrinsics,
+                                  device=self.device)
             if pres is not None:
                 self._log(f"polish GBA {tag} round {r}: cost "
                           f"{pres.initial_cost:.1f} -> {pres.final_cost:.1f}")
@@ -436,8 +468,11 @@ class IncrementalMapper:
             triangulate.retriangulate(
                 m, np.nonzero(m.track_valid[: m.num_tracks])[0], o.tri,
                 device=dev)
-            pres_post = self._polish_gba_rounds(m, reg_frames, "post",
-                                                hard=hard)
+            # the rewrite invalidates the intrinsics basin: the post side
+            # re-runs the intrinsics schedule
+            pres_post = self._polish_gba_rounds(
+                m, reg_frames, "post", hard=hard,
+                schedule_intrinsics=o.refine_intrinsics)
             cost_post = (pres_post.final_cost / max(pres_post.n_obs, 1)
                          if pres_post else None)
             # observation-loss guard: the post-rewrite retriangulation drops
@@ -464,7 +499,7 @@ class IncrementalMapper:
         n_rt = triangulate.retriangulate(m, None, o.tri, device=dev)
         fres = ba_glue.run_ba(
             m, reg_frames, BAOptions(max_iters=o.gba_iters, huber_px=2.0),
-            device=dev)
+            optimize_intrinsics=o.refine_intrinsics, device=dev)
         if fres is not None:
             self._log(f"polish GBA final: cost {fres.initial_cost:.1f} -> "
                       f"{fres.final_cost:.1f}")

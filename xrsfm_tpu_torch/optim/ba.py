@@ -16,12 +16,20 @@ LBA :523-592).
     zero IRLS weight and a constant cost.
   * Gauge freedom is fixed by masking Jacobian columns: frozen cameras,
     frozen translations (ba_solver.cc:610-614) and frozen points.
+  * Intrinsics refinement (optimize_intrinsics; reference: GBA frees
+    camera_param per physical camera, ba_solver.cc:330-356) widens the
+    camera tangent from 6 to 14: pose, then log fx, log fy, cx, cy, k1,
+    k2, p1, p2.  Cameras that share a physical camera share one intrinsic
+    block (cam_kam): PCG vectors stay per camera, [C, 14], with their
+    intrinsic part constant within a block, and the preconditioner has a
+    6x6 pose block per camera and an 8x8 intrinsic block per block.
 
 The LM and PCG loops run on the host: each stop test reads one scalar
 from the device.  Everything is float32; on a GPU the solve runs inside
 `device.full_precision()` (no TF32).  Left out, as the JAX package's
-TPU-only or off-path parts: the ELL / camera-major layout (a TPU gather
-workaround), the bf16 Schur operands, and intrinsics refinement.
+TPU-only parts: the ELL / camera-major layout (a TPU gather workaround,
+which the JAX package requires for intrinsics; the algorithm is the same
+on the COO layout here) and the bf16 Schur operands.
 """
 
 from __future__ import annotations
@@ -40,7 +48,8 @@ _BAD_RESIDUAL = 12.0  # the reference's negative-depth guard constant
 # Solves and iterations since the last reset_counts(), by the device the
 # solve ran on: shows that a run's bundle adjustment ran on the card, and
 # what its host loops cost.
-COUNTS = {"solves_cuda": 0, "solves_cpu": 0, "lm_iters": 0, "cg_iters": 0}
+COUNTS = {"solves_cuda": 0, "solves_cpu": 0, "intri_solves_cuda": 0,
+          "intri_solves_cpu": 0, "lm_iters": 0, "cg_iters": 0}
 
 
 def reset_counts():
@@ -63,17 +72,27 @@ class BAProblem:
     fix_cam: torch.Tensor  # [C] bool, freeze the full pose
     fix_trans: torch.Tensor  # [C] bool, freeze the translation only
     fix_pt: torch.Tensor  # [P] bool, freeze the point
+    # intrinsics metadata, read only by intrinsics-refining solves:
+    # intrinsic block per camera (cameras of one physical camera share a
+    # block) [C] int64; frozen canonical entries [C, 8] bool (entries the
+    # COLMAP model lacks); fx and fy one tied focal [C] bool
+    cam_kam: torch.Tensor | None = None
+    fix_intri: torch.Tensor | None = None
+    tie_f: torch.Tensor | None = None
 
     @classmethod
     def from_numpy(cls, device, **arrays):
         """Problem on `device` from numpy arrays named as the fields:
-        floats to float32, indices to int64, flags to bool."""
+        floats to float32, indices to int64, flags to bool; the
+        intrinsics fields may be left out."""
         out = {}
         for f in dataclasses.fields(cls):
+            if arrays.get(f.name) is None and f.default is None:
+                continue
             a = np.asarray(arrays[f.name])
-            if f.name.startswith("fix_"):
+            if f.name.startswith("fix_") or f.name == "tie_f":
                 a = a.astype(bool)
-            elif f.name in ("obs_cam", "obs_pt"):
+            elif f.name in ("obs_cam", "obs_pt", "cam_kam"):
                 a = a.astype(np.int64)
             else:
                 a = a.astype(np.float32)
@@ -97,7 +116,8 @@ class BAOptions:
     # changes nothing here; it is kept so that both packages' options and
     # call sites stay alike.
     precise: bool = False
-    # intrinsics refinement (the 14-dof camera tangent): not ported
+    # free the camera intrinsics (the 14-dof camera tangent); needs
+    # cam_kam and fix_intri on the problem
     optimize_intrinsics: bool = False
 
 
@@ -118,8 +138,9 @@ def _project(R, t, intri, xyz, uv):
     return pc, z, zs, proj, Cam.normalized_to_image(intri, proj) - uv
 
 
-def _residuals_and_jacobians(p: BAProblem):
-    """Residuals [O, 2], depths [O], Jc [O, 2, 6], Jp [O, 2, 3].
+def _residuals_and_jacobians(p: BAProblem, with_intri: bool = False):
+    """Residuals [O, 2], depths [O], Jc [O, 2, 6] (or [O, 2, 14] with the
+    intrinsic tangent appended), Jp [O, 2, 3].
 
     Analytic chain: pc = R x + t; proj = pc_xy / pc_z;
     pix = f * distort(proj) + c;
@@ -138,7 +159,42 @@ def _residuals_and_jacobians(p: BAProblem):
     ], dim=-2)
     B = A @ Jproj  # [O, 2, 3] = d pix / d pc
     Jw = B @ -(R @ G.skew(xyz))
-    return r, z, torch.cat([Jw, B], dim=-1), B @ R
+    Jc = torch.cat([Jw, B], dim=-1)
+    if with_intri:
+        tie = (p.tie_f[p.obs_cam].to(r.dtype) if p.tie_f is not None
+               else torch.zeros_like(z))
+        Jc = torch.cat([Jc, _intri_jacobian(intri, proj, tie)], dim=-1)
+    return r, z, Jc, B @ R
+
+
+def _intri_jacobian(intri, proj, tie):
+    """Analytic d pix / d intrinsic tangent, [..., 2, 8].
+
+    Tangent: (dlog fx, dlog fy, dcx, dcy, dk1, dk2, dp1, dp2); a log focal
+    keeps the column pixel-sized like the pose columns.  Where tie is 1
+    (single-focal models) column 0 carries d/dlog f for both axes and
+    column 1 is zero (its mask freezes it too)."""
+    fx, fy = intri[..., 0], intri[..., 1]
+    u, v = proj[..., 0], proj[..., 1]
+    d = Cam.distort(intri, proj)  # distorted normalized coordinates
+    u2, v2 = u * u, v * v
+    r2 = u2 + v2
+    r4 = r2 * r2
+    zeros = torch.zeros_like(u)
+    ones = torch.ones_like(u)
+    jx = torch.stack([
+        fx * d[..., 0], zeros,              # dlog fx (dlog f when tied)
+        ones, zeros,                        # dcx, dcy
+        fx * u * r2, fx * u * r4,           # dk1, dk2
+        fx * 2 * u * v, fx * (r2 + 2 * u2),  # dp1, dp2
+    ], dim=-1)
+    jy = torch.stack([
+        tie * fy * d[..., 1], (1.0 - tie) * fy * d[..., 1],
+        zeros, ones,
+        fy * v * r2, fy * v * r4,
+        fy * (r2 + 2 * v2), fy * 2 * u * v,
+    ], dim=-1)
+    return torch.stack([jx, jy], dim=-2)
 
 
 def _residuals_only(p: BAProblem):
@@ -214,13 +270,35 @@ def inv_spd(M):
     return torch.cat([top, bot], dim=-2)
 
 
+def _colmask_intri(p: BAProblem):
+    """Per-camera intrinsic-tangent mask [C, 8]: entries frozen by
+    fix_intri, and the dlog fy column of tied-focal cameras (column 0
+    carries both axes)."""
+    im = (~p.fix_intri).to(p.cam_q.dtype)
+    if p.tie_f is not None:
+        im[:, 1] = im[:, 1] * (~p.tie_f).to(im.dtype)
+    return im
+
+
+def _cam_colmask(p: BAProblem, with_intri: bool):
+    """Per-camera tangent mask [C, 6] (or [C, 14]): rotation columns free
+    unless the camera is frozen, translation columns also frozen by
+    fix_trans."""
+    dt = p.cam_q.dtype
+    cam_free = (~p.fix_cam).to(dt)
+    trans_free = (~(p.fix_cam | p.fix_trans)).to(dt)
+    m = torch.cat([cam_free[:, None].expand(-1, 3),
+                   trans_free[:, None].expand(-1, 3)], dim=1)
+    if with_intri:
+        m = torch.cat([m, _colmask_intri(p)], dim=1)
+    return m
+
+
 def _masked_jacobians(p: BAProblem, Jc, Jp):
-    """Zero the Jacobian columns of frozen cameras, translations, points."""
+    """Zero the Jacobian columns of frozen cameras, translations,
+    intrinsic entries and points."""
     dt = Jc.dtype
-    cam_free = (~p.fix_cam)[p.obs_cam].to(dt)
-    trans_free = (~(p.fix_cam | p.fix_trans))[p.obs_cam].to(dt)
-    colmask = torch.cat([cam_free[:, None].expand(-1, 3),
-                         trans_free[:, None].expand(-1, 3)], dim=1)  # [O, 6]
+    colmask = _cam_colmask(p, Jc.shape[-1] > 6).to(dt)[p.obs_cam]  # [O, D]
     Jc = Jc * colmask[:, None, :]
     Jp = Jp * (~p.fix_pt)[p.obs_pt].to(dt)[:, None, None]
     return Jc, Jp
@@ -242,8 +320,8 @@ def segment_sum(x, idx, n):
 
 
 def _build_normal_blocks(p: BAProblem, r, Jc, Jp, w):
-    """The normal-equation blocks U [C, 6, 6], V [P, 3, 3], W [O, 6, 3],
-    bc [C, 6], bp [P, 3]."""
+    """The normal-equation blocks U [C, D, D], V [P, 3, 3], W [O, D, 3],
+    bc [C, D], bp [P, 3], D = 6 (pose) or 14 (pose and intrinsics)."""
     C = p.cam_q.shape[0]
     P = p.points.shape[0]
     Jc, Jp = _masked_jacobians(p, Jc, Jp)
@@ -259,16 +337,73 @@ def _build_normal_blocks(p: BAProblem, r, Jc, Jp, w):
     return U, V, W, bc, bp
 
 
+class _TiedSpace:
+    """The reduced space of an intrinsics solve (JAX optim/ba.py
+    :1094-1120): pose columns live per camera, intrinsic columns per
+    intrinsic block.  Vectors keep the replicated per-camera form [C, 14]
+    whose intrinsic part is constant within a block; `proj` sums a
+    camera-level gradient over its block, `dot` counts each block once."""
+
+    def __init__(self, kam, C):
+        self.kam = kam
+        self.C = C
+        cnt = segment_sum(torch.ones(C, dtype=torch.float32,
+                                     device=kam.device), kam, C)
+        self.wred = (1.0 / cnt.clamp_min(1.0))[kam][:, None]  # [C, 1]
+
+    def proj(self, y):
+        yi = segment_sum(y[:, 6:], self.kam, self.C)
+        return torch.cat([y[:, :6], yi[self.kam]], dim=1)
+
+    def dot(self, a, b):
+        return ((a[:, :6] * b[:, :6]).sum()
+                + (a[:, 6:] * b[:, 6:] * self.wred).sum())
+
+    def reduce(self, x):
+        """One copy of each block's intrinsic value: [C(blocks), 8]."""
+        return segment_sum(x[:, 6:] * self.wred, self.kam, self.C)
+
+
+class _PlainSpace:
+    """The camera space of a pose-only solve: no tying."""
+
+    @staticmethod
+    def proj(y):
+        return y
+
+    @staticmethod
+    def dot(a, b):
+        return (a * b).sum()
+
+
+def _jacobi_blocks(p: BAProblem, Ud, Vinv, W, space):
+    """The blocks the preconditioner inverts: the diagonal blocks of the
+    reduced camera system S; with intrinsics, a 6x6 pose block per camera
+    and an 8x8 intrinsic block per intrinsic block (the blocks' cameras
+    summed).  Returns (pose or whole blocks [C, D, D], intrinsic blocks
+    [C, 8, 8] or None)."""
+    C, D = Ud.shape[0], Ud.shape[-1]
+    eyeD = torch.eye(D, dtype=Ud.dtype, device=Ud.device)
+    WVW = (W @ Vinv[p.obs_pt]) @ W.transpose(1, 2)
+    Sdiag = Ud - segment_sum(WVW, p.obs_cam, C) + 1e-7 * eyeD
+    if D == 6:
+        return Sdiag, None
+    Sd_i = segment_sum(Sdiag[:, 6:, 6:], space.kam, C) + 1e-7 * eyeD[:8, :8]
+    return Sdiag[:, :6, :6], Sd_i
+
+
 def _schur_solve(p: BAProblem, U, V, W, bc, bp, lam, cg_iters, cg_tol):
     """Marginalize the points, block-Jacobi PCG on the reduced camera
-    system, back-substitute."""
-    C = p.cam_q.shape[0]
+    system (in the tied space of the intrinsic blocks when the tangent
+    has them), back-substitute."""
+    C, D = U.shape[0], U.shape[-1]
     P = p.points.shape[0]
-    eye6 = torch.eye(6, dtype=U.dtype, device=U.device)
+    eyeD = torch.eye(D, dtype=U.dtype, device=U.device)
     eye3 = torch.eye(3, dtype=U.dtype, device=U.device)
+    space = _TiedSpace(p.cam_kam, C) if D > 6 else _PlainSpace()
 
     # multiplicative LM damping on the block diagonals
-    Ud = U + lam * (U * eye6) + 1e-8 * eye6
+    Ud = U + lam * (U * eyeD) + 1e-8 * eyeD
     Vd = V + lam * (V * eye3) + 1e-8 * eye3
     Vinv = _inv3x3(Vd)
     WT = W.transpose(1, 2)
@@ -276,36 +411,48 @@ def _schur_solve(p: BAProblem, U, V, W, bc, bp, lam, cg_iters, cg_tol):
     def mv(M, x):  # batched matrix-vector product
         return (M @ x[..., None])[..., 0]
 
-    def S_matvec(x):  # x [C, 6]
+    def S_matvec(x):  # x [C, D]
         yp = segment_sum(mv(WT, x[p.obs_cam]), p.obs_pt, P)
         zp = mv(Vinv, yp)
-        return mv(Ud, x) - segment_sum(mv(W, zp[p.obs_pt]), p.obs_cam, C)
+        return space.proj(
+            mv(Ud, x) - segment_sum(mv(W, zp[p.obs_pt]), p.obs_cam, C))
 
     # rhs = bc - W Vinv bp
-    rhs = bc - segment_sum(mv(W, mv(Vinv, bp)[p.obs_pt]), p.obs_cam, C)
+    rhs = space.proj(
+        bc - segment_sum(mv(W, mv(Vinv, bp)[p.obs_pt]), p.obs_cam, C))
 
-    # block-Jacobi preconditioner: the diagonal blocks of S
-    WVW = (W @ Vinv[p.obs_pt]) @ WT
-    Sdiag = Ud - segment_sum(WVW, p.obs_cam, C) + 1e-7 * eye6
-    Minv = linalg.solve(Sdiag, eye6.expand(C, 6, 6))
+    # block-Jacobi preconditioner, LU-inverted
+    M_p, M_i = _jacobi_blocks(p, Ud, Vinv, W, space)
+    n = M_p.shape[-1]
+    Minv = linalg.solve(M_p, eyeD[:n, :n].expand(C, n, n))
+    if M_i is None:
+        def precond(x):
+            return mv(Minv, x)
+    else:
+        Minv_i = linalg.solve(M_i, eyeD[:8, :8].expand(C, 8, 8))
 
+        def precond(x):
+            xi = mv(Minv_i, space.reduce(x))
+            return torch.cat([mv(Minv, x[:, :6]), xi[space.kam]], dim=1)
+
+    dot = space.dot
     x = torch.zeros_like(rhs)
     r_ = rhs
-    z_ = mv(Minv, r_)
+    z_ = precond(r_)
     pk = z_
-    rz = (r_ * z_).sum()
-    bnorm = torch.sqrt((rhs * rhs).sum()) + 1e-30
+    rz = dot(r_, z_)
+    bnorm = torch.sqrt(dot(rhs, rhs)) + 1e-30
     for _ in range(cg_iters):
-        if not bool(torch.sqrt((r_ * r_).sum()) > cg_tol * bnorm):
+        if not bool(torch.sqrt(dot(r_, r_)) > cg_tol * bnorm):
             break
         COUNTS["cg_iters"] += 1
         Ap = S_matvec(pk)
-        denom = (pk * Ap).sum()
+        denom = dot(pk, Ap)
         alpha = rz / torch.where(denom.abs() < 1e-30, 1e-30, denom)
         x = x + alpha * pk
         r_ = r_ - alpha * Ap
-        z_ = mv(Minv, r_)
-        rz_new = (r_ * z_).sum()
+        z_ = precond(r_)
+        rz_new = dot(r_, z_)
         beta = rz_new / torch.where(rz.abs() < 1e-30, 1e-30, rz)
         pk = z_ + beta * pk
         rz = rz_new
@@ -317,25 +464,41 @@ def _schur_solve(p: BAProblem, U, V, W, bc, bp, lam, cg_iters, cg_tol):
 
 def _apply_step(p: BAProblem, dx_c, dx_p) -> BAProblem:
     """Retract the free parameters; frozen ones are kept bit for bit (the
-    JAX package re-normalizes frozen quaternions, a last-bit change)."""
-    q2, t2 = G.pose_retract(p.cam_q, p.cam_t, dx_c)
+    JAX package re-normalizes frozen quaternions, a last-bit change).
+    With intrinsics: f exp(dlog f) per axis (both from column 0 when
+    tied), additive cx, cy, k1, k2, p1, p2."""
+    q2, t2 = G.pose_retract(p.cam_q, p.cam_t, dx_c[:, :6])
     fix_c = p.fix_cam[:, None]
-    return dataclasses.replace(
+    out = dataclasses.replace(
         p,
         cam_q=torch.where(fix_c, p.cam_q, q2),
         cam_t=torch.where(fix_c | p.fix_trans[:, None], p.cam_t, t2),
         points=torch.where(p.fix_pt[:, None], p.points, p.points + dx_p),
     )
+    if dx_c.shape[1] > 6:
+        di = dx_c[:, 6:] * _colmask_intri(p)
+        intri = p.cam_intri
+        tie = (p.tie_f.to(intri.dtype) if p.tie_f is not None
+               else torch.zeros_like(intri[:, 0]))
+        dlogfy = tie * di[:, 0] + (1.0 - tie) * di[:, 1]
+        out.cam_intri = torch.cat([
+            (intri[:, 0] * torch.exp(di[:, 0]))[:, None],
+            (intri[:, 1] * torch.exp(dlogfy))[:, None],
+            intri[:, 2:] + di[:, 2:]], dim=1)
+    return out
 
 
 def solve_ba(p: BAProblem, opts: BAOptions = BAOptions()):
     """Run LM.  Returns (solved problem, info dict with float
     initial_cost, final_cost, lam and int iters)."""
+    if opts.optimize_intrinsics and (p.cam_kam is None
+                                     or p.fix_intri is None):
+        raise ValueError("optimize_intrinsics requires cam_kam and "
+                         "fix_intri on the problem")
+    dev = "cuda" if p.cam_q.is_cuda else "cpu"
+    COUNTS[f"solves_{dev}"] += 1
     if opts.optimize_intrinsics:
-        raise NotImplementedError(
-            "intrinsics BA is not ported yet (ROADMAP.md, Still to port, "
-            "item 3)")
-    COUNTS["solves_cuda" if p.cam_q.is_cuda else "solves_cpu"] += 1
+        COUNTS[f"intri_solves_{dev}"] += 1
     with full_precision():
         return _solve(p, opts)
 
@@ -352,7 +515,8 @@ def _solve(p: BAProblem, opts: BAOptions):
     it = 0
     while it < opts.max_iters:
         COUNTS["lm_iters"] += 1
-        r, z, Jc, Jp = _residuals_and_jacobians(p)
+        r, z, Jc, Jp = _residuals_and_jacobians(
+            p, with_intri=opts.optimize_intrinsics)
         _, w = _robust_cost_and_weight(r, z, p.obs_w, opts.huber_px)
         U, V, W, bc, bp = _build_normal_blocks(p, r, Jc, Jp, w)
         dx_c, dx_p = _schur_solve(p, U, V, W, bc, bp, lam, opts.cg_iters,
@@ -364,6 +528,8 @@ def _solve(p: BAProblem, opts: BAOptions):
             p,
             cam_q=torch.where(accept, cand.cam_q, p.cam_q),
             cam_t=torch.where(accept, cand.cam_t, p.cam_t),
+            cam_intri=(torch.where(accept, cand.cam_intri, p.cam_intri)
+                       if opts.optimize_intrinsics else p.cam_intri),
             points=torch.where(accept, cand.points, p.points),
         )
         cost2 = torch.where(accept, new_cost, cost)

@@ -4,9 +4,12 @@ reference: src/run_matching.cc:153-258).
 Usage: python -m xrsfm_tpu_torch.cli run_matching <images_dir>
        <retrieval_path> <matching_type> <output_dir> [--device cuda]
 
-matching_type: sequential | retrieval.  Writes ftr.bin / size.bin /
-fp.bin in the reference's formats and reuses a cached ftr.bin / size.bin
-when it covers every image (run_matching.cc:25-31,57-59).
+matching_type: sequential | retrieval | covisibility.  Writes ftr.bin /
+size.bin / fp.bin (and fp_init.bin, the covisibility seeds) in the
+reference's formats and reuses a cached ftr.bin / size.bin / fp_init.bin
+when it covers every image (run_matching.cc:25-31,57-59).  Without a
+retrieval.txt, retrieval and covisibility matching rank the images by
+VLAD themselves (feature/retrieval) and cache the ranks as retrieval.txt.
 """
 
 from __future__ import annotations
@@ -19,6 +22,8 @@ import numpy as np
 
 from ..device import resolve_device
 from ..feature import matching as fmatch
+from ..feature import retrieval as RET
+from ..feature.expansion import covisibility_matching
 from ..ops.sift import SiftExtractor, SiftOptions
 from ..utils import image_io
 from ..utils import io_features as IOF
@@ -112,24 +117,14 @@ def main(
 
     stats (optional dict) receives pairs_proposed (the number of candidate
     pairs matched and verified), extract_s and match_verify_s (host-clock
-    seconds of the two phases, each ending in a device-to-host copy)."""
+    seconds of the two phases, each ending in a device-to-host copy),
+    retrieval_s when it ranked the images itself, and for covisibility
+    matching the split of match_verify_s into search_s (the expansion's
+    host search) and match_s (matching and verification)."""
     opts = opts or fmatch.MatchingOptions()
     resolve_device(device)
     if matching_type not in ("sequential", "retrieval", "covisibility"):
         raise ValueError(f"unknown matching type {matching_type}")
-    if matching_type == "covisibility":
-        raise NotImplementedError(
-            "covisibility matching (EC-SfM expansion) is not ported yet "
-            "(ROADMAP.md queue 1, item 10)"
-        )
-    has_ranks = bool(retrieval_path) and os.path.exists(retrieval_path)
-    cache = os.path.join(output_dir, "retrieval.txt")
-    if matching_type == "retrieval" and not (has_ranks or os.path.exists(cache)):
-        raise NotImplementedError(
-            "retrieval matching without a retrieval.txt needs the VLAD "
-            "self-retrieval, which is not ported yet (ROADMAP.md queue 1, "
-            "item 10); pass a retrieval.txt"
-        )
     os.makedirs(output_dir, exist_ok=True)
     image_names = IOF.load_image_names(images_dir)
     name_to_id = {n: i for i, n in enumerate(image_names)}
@@ -143,10 +138,26 @@ def main(
         stats["extract_s"] = time.time() - t_ex
 
     id2rank = {}
-    if has_ranks:
+    if retrieval_path and os.path.exists(retrieval_path):
         id2rank = IOF.load_retrieval_rank(retrieval_path, name_to_id)
-    elif matching_type == "retrieval":
-        id2rank = IOF.load_retrieval_rank(cache, name_to_id)
+    elif matching_type in ("retrieval", "covisibility"):
+        # the reference needs an external retrieval.txt here
+        # (run_matching.cc:193-207); the ranks come from VLAD over the
+        # extracted descriptors instead, cached in the reference's format
+        cache = os.path.join(output_dir, "retrieval.txt")
+        if os.path.exists(cache):
+            id2rank = IOF.load_retrieval_rank(cache, name_to_id)
+        else:
+            t_r = time.time()
+            ranks, _ = RET.build_retrieval(
+                [f.descriptors for f in feats], topk=opts.retrieval_topk,
+                device=device)
+            RET.write_retrieval_text(cache, image_names, ranks)
+            id2rank = RET.ranks_to_id2rank(ranks)
+            if stats is not None:
+                stats["retrieval_s"] = time.time() - t_r
+            print(f"[retrieval] built in {time.time() - t_r:.1f}s -> {cache}",
+                  flush=True)
 
     t0 = time.time()
     if matching_type == "sequential":
@@ -158,12 +169,18 @@ def main(
                 if abs(i - j) >= opts.seq_window:
                     pairs.append((min(i, j), max(i, j)))
         pairs = sorted(set(pairs))
-    else:
+    elif matching_type == "retrieval":
         pairs = fmatch.retrieval_pairs(id2rank, opts.retrieval_topk)
-    if stats is not None:
-        stats["pairs_proposed"] = len(pairs)
-    verified = fmatch.match_and_verify_pairs(feats, pairs, opts,
-                                             device=device)
+    if matching_type == "covisibility":
+        verified = covisibility_matching(
+            feats, id2rank, opts,
+            init_pairs_path=os.path.join(output_dir, "fp_init.bin"),
+            stats=stats, device=device)
+    else:
+        if stats is not None:
+            stats["pairs_proposed"] = len(pairs)
+        verified = fmatch.match_and_verify_pairs(feats, pairs, opts,
+                                                 device=device)
     if stats is not None:
         stats["match_verify_s"] = time.time() - t0
 

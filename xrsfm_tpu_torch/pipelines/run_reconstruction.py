@@ -27,18 +27,30 @@ from ..utils import io_colmap as IOC
 from ..utils import io_features as IOF
 
 
-def build_map(bin_dir: str, camera_txt: str) -> SfMMap:
+def build_map(bin_dir: str, camera_txt: Optional[str] = None,
+              camera_per_image: Optional[dict] = None,
+              name2cid: Optional[dict] = None) -> SfMMap:
     """PreProcess (reference: run_reconstruction.cc:12-47): load features
-    and verified pairs, build the correspondence graph."""
+    and verified pairs, build the correspondence graph.  One shared camera
+    from camera_txt, or per-image cameras (camera_per_image {cid:
+    ColmapCamera} and name2cid {image name: cid}; an image without an
+    entry takes camera 0)."""
     feats = IOF.read_features(os.path.join(bin_dir, "ftr.bin"),
                               with_descs=False)
     pairs = IOF.read_frame_pairs(os.path.join(bin_dir, "fp.bin"))
     m = SfMMap()
-    cams = IOC.read_cameras_text(camera_txt)
-    c = cams[sorted(cams.keys())[0]]
-    m.add_camera(0, c.model_id, c.params, c.width, c.height)
-    for f in feats:
-        m.add_frame(f.name, 0, f.keypoints[:, :2])
+    if camera_per_image is None:
+        cams = IOC.read_cameras_text(camera_txt)
+        c = cams[sorted(cams.keys())[0]]
+        m.add_camera(0, c.model_id, c.params, c.width, c.height)
+        for f in feats:
+            m.add_frame(f.name, 0, f.keypoints[:, :2])
+    else:
+        for cid, c in camera_per_image.items():
+            m.add_camera(cid, c.model_id, c.params, c.width, c.height)
+        for f in feats:
+            m.add_frame(f.name, max(name2cid.get(f.name, -1), 0),
+                        f.keypoints[:, :2])
     for p in pairs:
         inl = p.inlier_matches()
         if len(inl):

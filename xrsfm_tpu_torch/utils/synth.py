@@ -1,7 +1,8 @@
 """Synthetic data: the arc scene of scripts/synth_dataset.py, the
-kitti-class circuit workspace of scripts/synth_features.py, seeded
-descriptor sets for the matcher's kernel checks, and the bundle-adjustment
-benchmark problem of bench.make_ba_problem.
+kitti-class circuit and the unordered (1DSfM-class) workspaces of
+scripts/synth_features.py, seeded descriptor sets for the matcher's kernel
+checks, and the bundle-adjustment benchmark problem of
+bench.make_ba_problem.
 
 The arc scene ray-casts two textured Lambertian planes (a wall and a
 floor) from an arc of cameras, so every pixel observes a fixed 3D point
@@ -18,6 +19,7 @@ Dataset layout written by `write_arc_dataset`:
 from __future__ import annotations
 
 import os
+from collections import Counter
 from typing import List, Tuple
 
 import numpy as np
@@ -291,11 +293,13 @@ def ba_problem(n_cams=200, n_pts=20000, obs_per_pt=7, seed=0):
 
 
 # ---------------------------------------------------------------------------
-# the kitti-class circuit (feature level, no images)
+# feature-level workspaces of scripts/synth_features.py (no images): the
+# kitti-class circuit and the unordered landmark scenes
 # ---------------------------------------------------------------------------
 
-KITTI_FX = 500.0
-KITTI_W, KITTI_H = 960, 720
+WS_FX = 500.0
+WS_W, WS_H = 960, 720
+DISTRACTOR_PTS = 300  # points of each distractor's clutter cluster
 
 
 def kitti_scene(rng, n_frames, step=0.5):
@@ -332,23 +336,156 @@ def kitti_scene(rng, n_frames, step=0.5):
     return centers, R, np.concatenate(pts)
 
 
+def append_distractors(rng, centers, R, pts_all, n_distractors, half=14.0):
+    """Append n_distractors unregistrable junk frames, each looking at its
+    own private clutter cluster far out on a shell of 30 to 90 times the
+    scene's half-size: no structure shared with the scene or with another
+    distractor (real 1DSfM collections are mostly such frames)."""
+    dc = np.zeros((n_distractors, 3))
+    dR = np.zeros((n_distractors, 3, 3))
+    dpts = []
+    for i in range(n_distractors):
+        th = rng.uniform(0, 2 * np.pi)
+        el = rng.uniform(-1.0, 1.0)
+        rad = half * rng.uniform(30.0, 90.0)
+        dirv = np.array([np.cos(el) * np.cos(th), np.sin(el),
+                         np.cos(el) * np.sin(th)])
+        cluster = rad * dirv
+        cam = cluster - dirv * rng.uniform(6.0, 12.0) + rng.normal(
+            scale=0.5, size=3)
+        dc[i] = cam
+        dR[i] = look_at_R(cam, cluster)
+        dpts.append(cluster + rng.normal(scale=1.5, size=(DISTRACTOR_PTS, 3)))
+    return (np.concatenate([centers, dc]), np.concatenate([R, dR]),
+            np.concatenate([pts_all] + dpts))
+
+
+def tour_scene(rng, n_frames, n_distractors=0, frames_per_building=25,
+               spacing=24.0):
+    """A street of separate building facades walked past from the far
+    sidewalk (sparse genuine graph: covisible pairs grow linearly with the
+    frame count), with two wide overview shots per gap that bridge
+    neighbouring facades; optional distractors."""
+    n_buildings = max(2, int(np.ceil(n_frames / frames_per_building)))
+    half_w = spacing / 3.0  # facade half-width
+    street = 10.0  # facade plane z
+    pts = []
+    for b in range(n_buildings):
+        bx = b * spacing
+        npw = 2200
+        a = rng.uniform(-half_w, half_w, npw)
+        h = rng.uniform(-1.0, 6.0, npw)
+        relief = rng.uniform(0.0, 1.2, npw)  # protrusions toward the street
+        p = np.zeros((npw, 3))
+        p[:, 0] = bx + a
+        p[:, 1] = h
+        p[:, 2] = street - relief
+        pts.append(p)
+        n_g = 500  # ground strip in front of the building
+        g = np.zeros((n_g, 3))
+        g[:, 0] = bx + rng.uniform(-half_w, half_w, n_g)
+        g[:, 1] = rng.uniform(-1.2, -0.9, n_g)
+        g[:, 2] = rng.uniform(4.0, street - 0.5, n_g)
+        pts.append(g)
+    pts_all = np.concatenate(pts)
+    length = (n_buildings - 1) * spacing
+    n_over = max(0, 2 * (n_buildings - 1))
+    n_walk = max(2, n_frames - n_over)
+    xs = np.sort(rng.uniform(-0.4 * spacing, length + 0.4 * spacing, n_walk))
+    over_x = (np.arange(n_over) // 2 + 0.5) * spacing
+    centers = np.zeros((n_walk + n_over, 3))
+    centers[:n_walk, 0] = xs
+    centers[:n_walk, 1] = rng.uniform(-0.2, 1.2, n_walk)
+    centers[:n_walk, 2] = rng.uniform(-2.0, 2.0, n_walk)
+    centers[n_walk:, 0] = over_x + rng.uniform(-2.0, 2.0, n_over)
+    centers[n_walk:, 1] = rng.uniform(0.5, 2.0, n_over)
+    centers[n_walk:, 2] = rng.uniform(-24.0, -19.0, n_over)
+    R = np.zeros((n_walk + n_over, 3, 3))
+    for i in range(n_walk):
+        tgt = np.array([xs[i] + rng.uniform(-3.0, 3.0),
+                        rng.uniform(0.5, 2.5), street])
+        R[i] = look_at_R(centers[i], tgt)
+    for i in range(n_over):
+        tgt = np.array([over_x[i] + rng.uniform(-2.0, 2.0),
+                        rng.uniform(1.0, 3.0), street])
+        R[n_walk + i] = look_at_R(centers[n_walk + i], tgt)
+    if n_distractors:
+        centers, R, pts_all = append_distractors(
+            rng, centers, R, pts_all, n_distractors, half=14.0)
+    return centers, R, pts_all
+
+
+def unordered_scene(rng, n_frames, half=14.0, n_distractors=0):
+    """Landmark ring (internet photos of one central landmark): cameras on
+    an annulus looking inward at a four-facade building with relief and
+    ground points around it (dense covisibility, long tracks); optional
+    distractors."""
+    ang = rng.uniform(0, 2 * np.pi, n_frames)
+    rad = rng.uniform(0.55 * half, 1.15 * half, n_frames)
+    centers = np.zeros((n_frames, 3))
+    centers[:, 0] = rad * np.cos(ang)
+    centers[:, 2] = rad * np.sin(ang)
+    centers[:, 1] = rng.uniform(-0.5, 1.5, n_frames)
+    R = np.zeros((n_frames, 3, 3))
+    for i in range(n_frames):
+        tgt = np.array([rng.uniform(-2.0, 2.0), rng.uniform(-1.0, 2.0),
+                        rng.uniform(-2.0, 2.0)])
+        R[i] = look_at_R(centers[i], tgt)
+    pts = []
+    s = 0.3 * half
+    npw = 5000
+    for wall in range(4):
+        a = rng.uniform(-s, s, npw)
+        h = rng.uniform(-1.0, 6.0, npw)
+        relief = rng.uniform(0.0, 1.2, npw)
+        p = np.zeros((npw, 3))
+        if wall == 0:
+            p[:, 0], p[:, 2] = a, s - relief
+        elif wall == 1:
+            p[:, 0], p[:, 2] = a, -s + relief
+        elif wall == 2:
+            p[:, 0], p[:, 2] = s - relief, a
+        else:
+            p[:, 0], p[:, 2] = -s + relief, a
+        p[:, 1] = h
+        pts.append(p)
+    n_ground = 4000
+    gr = np.zeros((n_ground, 3))
+    rr = rng.uniform(0.35 * half, 0.9 * half, n_ground)
+    aa = rng.uniform(0, 2 * np.pi, n_ground)
+    gr[:, 0] = rr * np.cos(aa)
+    gr[:, 2] = rr * np.sin(aa)
+    gr[:, 1] = rng.uniform(-1.2, -0.8, n_ground)
+    pts.append(gr)
+    pts_all = np.concatenate(pts)
+    if n_distractors:
+        centers, R, pts_all = append_distractors(
+            rng, centers, R, pts_all, n_distractors, half=half)
+    return centers, R, pts_all
+
+
 def project_all(centers, R, pts, rng, max_kp=700, z_range=(1.0, 40.0),
-                noise_px=0.4):
-    """Visibility and projection for every frame (PINHOLE, KITTI_FX at the
-    image center): per frame (point_ids, uv_px), at most max_kp keypoints,
-    nearest first, with Gaussian pixel noise."""
-    cx, cy = KITTI_W / 2.0, KITTI_H / 2.0
+                noise_px=0.4, focals=None, k1s=None):
+    """Visibility and projection for every frame: per frame (point_ids,
+    uv_px), at most max_kp keypoints, nearest first, with Gaussian pixel
+    noise.  PINHOLE with WS_FX at the image center, or per-frame
+    SIMPLE_RADIAL cameras (focals, k1s [F]): uv = f x (1 + k r^2) + c."""
+    cx, cy = WS_W / 2.0, WS_H / 2.0
     out = []
     for i in range(len(centers)):
+        f_i = WS_FX if focals is None else float(focals[i])
+        k_i = 0.0 if k1s is None else float(k1s[i])
         pc = (pts - centers[i]) @ R[i].T
         z = pc[:, 2]
         ok = (z > z_range[0]) & (z < z_range[1])
         zz = np.where(ok, z, 1.0)
         x = pc[:, 0] / zz
         y = pc[:, 1] / zz
-        u = KITTI_FX * x + cx
-        v = KITTI_FX * y + cy
-        ok &= (u > 8) & (u < KITTI_W - 8) & (v > 8) & (v < KITTI_H - 8)
+        d = 1.0 + k_i * (x * x + y * y)
+        u = f_i * x * d + cx
+        v = f_i * y * d + cy
+        ok &= (u > 8) & (u < WS_W - 8) & (v > 8) & (v < WS_H - 8)
+        ok &= d > 0.6  # the distortion stays monotone inside the view
         ids = np.nonzero(ok)[0]
         if len(ids) > max_kp:
             ids = ids[np.argsort(z[ids])[:max_kp]]
@@ -358,26 +495,13 @@ def project_all(centers, R, pts, rng, max_kp=700, z_range=(1.0, 40.0),
     return out
 
 
-def build_kitti_pairs(frames_obs, n_frames, rng, loop_centers, min_shared=30,
-                      contamination=0.03):
-    """Verified pairs of the circuit: every frame with its next 5, plus up
-    to 3 loop-closure partners within 4 units that are more than 50 frames
-    apart (every second frame); matches from shared point ids, with a
-    `contamination` share rewired to wrong targets but kept as inliers."""
-    cand = set()
-    for i in range(n_frames):
-        for k in range(1, 6):
-            if i + k < n_frames:
-                cand.add((i, i + k))
-    c = loop_centers
-    for i in range(0, n_frames, 2):
-        d = np.linalg.norm(c - c[i], axis=1)
-        close = np.nonzero((d < 4.0)
-                           & (np.abs(np.arange(n_frames) - i) > 50))[0]
-        for j in close[:3]:
-            cand.add((i, int(j)) if i < j else (int(j), i))
+def _pairs_from_shared_points(frames_obs, cand, rng, min_shared,
+                              contamination):
+    """Verified pairs for the candidate frame pairs: matches from shared
+    point ids, at least min_shared of them, with a `contamination` share
+    rewired to wrong targets but kept as inliers."""
     pairs = []
-    for a, b in sorted(cand):
+    for a, b in cand:
         ids_a, _ = frames_obs[a]
         ids_b, _ = frames_obs[b]
         pos_b = {int(p): k for k, p in enumerate(ids_b)}
@@ -396,19 +520,80 @@ def build_kitti_pairs(frames_obs, n_frames, rng, loop_centers, min_shared=30,
     return pairs
 
 
-def write_kitti_workspace(out_dir, n_frames=1000, seed=0):
-    """The kitti-class circuit workspace of scripts/synth_features.py
-    (`--scene kitti`), byte for byte for the same n_frames and seed:
-    ftr.bin (keypoints, zero descriptors), fp.bin (verified pairs with loop
-    closures), camera.txt and gt_poses.txt (name qw qx qy qz tx ty tz,
-    Tcw).  Returns the image names."""
+def build_kitti_pairs(frames_obs, n_frames, rng, loop_centers, min_shared=30,
+                      contamination=0.03):
+    """Verified pairs of the circuit: every frame with its next 5, plus up
+    to 3 loop-closure partners within 4 units that are more than 50 frames
+    apart (every second frame)."""
+    cand = set()
+    for i in range(n_frames):
+        for k in range(1, 6):
+            if i + k < n_frames:
+                cand.add((i, i + k))
+    c = loop_centers
+    for i in range(0, n_frames, 2):
+        d = np.linalg.norm(c - c[i], axis=1)
+        close = np.nonzero((d < 4.0)
+                           & (np.abs(np.arange(n_frames) - i) > 50))[0]
+        for j in close[:3]:
+            cand.add((i, int(j)) if i < j else (int(j), i))
+    return _pairs_from_shared_points(frames_obs, sorted(cand), rng,
+                                     min_shared, contamination)
+
+
+def build_covisibility_pairs(frames_obs, n_frames, rng, min_shared=30,
+                             contamination=0.03, top_per_frame=25):
+    """Verified pairs of an unordered scene: frame pairs that co-observe
+    at least min_shared points (counted over at most 40 observers of each
+    point, sampled), the top_per_frame most covisible of each frame."""
+    pt_frames = {}
+    for f, (ids, _) in enumerate(frames_obs):
+        for k, pid in enumerate(ids):
+            pt_frames.setdefault(int(pid), []).append((f, k))
+    cnt = Counter()
+    for pid, obs in pt_frames.items():
+        if len(obs) > 40:
+            obs = [obs[x] for x in rng.choice(len(obs), 40, replace=False)]
+        fs = sorted(set(f for f, _ in obs))
+        for a in range(len(fs)):
+            for b in range(a + 1, len(fs)):
+                cnt[(fs[a], fs[b])] += 1
+    per_frame = [[] for _ in range(n_frames)]
+    for (a, b), c_ in cnt.items():
+        if c_ >= min_shared:
+            per_frame[a].append((c_, a, b))
+            per_frame[b].append((c_, a, b))
+    cand = set()
+    for lst in per_frame:
+        lst.sort(reverse=True)
+        for c_, a, b in lst[:top_per_frame]:
+            cand.add((a, b))
+    return _pairs_from_shared_points(frames_obs, sorted(cand), rng,
+                                     min_shared, contamination)
+
+
+def synth_descriptors(frames_obs, n_points, rng, noise=0.25, sparsity=0.65):
+    """Matchable uint8 descriptors: per 3D point a sparse non-negative raw
+    histogram, per observation multiplicative noise, L1-root normalized
+    and scaled by 512 as the matcher's quantization expects."""
+    raw = rng.exponential(1.0, size=(n_points, 128)).astype(np.float32)
+    raw *= rng.random((n_points, 128)) > sparsity  # sparse support
+    raw += 1e-6
+    descs = []
+    for ids, _uv in frames_obs:
+        r = raw[ids] * (1.0 + rng.normal(scale=noise, size=(len(ids), 128))
+                        ).clip(0.05)
+        v = np.sqrt(r / r.sum(axis=1, keepdims=True))
+        descs.append(np.clip(512.0 * v, 0, 255).astype(np.uint8))
+    return descs
+
+
+def _write_features_and_poses(out_dir, names, frames_obs, R, centers,
+                              descs=None):
+    """ftr.bin (keypoints at scale 2, descriptors or zeros) and
+    gt_poses.txt (name qw qx qy qz tx ty tz, Tcw)."""
     from .geometry import rotmat_to_quat_np
 
-    rng = np.random.default_rng(seed)
-    os.makedirs(out_dir, exist_ok=True)
-    centers, R, pts = kitti_scene(rng, n_frames)
-    frames_obs = project_all(centers, R, pts, rng)
-    names = [f"img{i:05d}.png" for i in range(n_frames)]
     feats = []
     for i, (_ids, uv) in enumerate(frames_obs):
         kp = np.zeros((len(uv), 4), np.float32)
@@ -416,19 +601,76 @@ def write_kitti_workspace(out_dir, n_frames=1000, seed=0):
         kp[:, 2] = 2.0
         feats.append(IOF.FrameFeatures(
             name=names[i], keypoints=kp,
-            descriptors=np.zeros((len(uv), 128), np.uint8)))
+            descriptors=(descs[i] if descs is not None
+                         else np.zeros((len(uv), 128), np.uint8))))
     IOF.write_features(os.path.join(out_dir, "ftr.bin"), feats,
                        with_descs=True)
-    pairs = build_kitti_pairs(frames_obs, n_frames, rng, centers)
-    IOF.write_frame_pairs(os.path.join(out_dir, "fp.bin"), pairs)
-    cx, cy = KITTI_W / 2.0, KITTI_H / 2.0
-    with open(os.path.join(out_dir, "camera.txt"), "w") as f:
-        f.write(f"0 PINHOLE {KITTI_W} {KITTI_H} {KITTI_FX} {KITTI_FX} "
-                f"{cx} {cy}\n")
     with open(os.path.join(out_dir, "gt_poses.txt"), "w") as f:
-        for i in range(n_frames):
+        for i in range(len(names)):
             q = rotmat_to_quat_np(R[i])
             t = -R[i] @ centers[i]
             f.write(f"{names[i]} {q[0]:.9f} {q[1]:.9f} {q[2]:.9f} {q[3]:.9f} "
                     f"{t[0]:.6f} {t[1]:.6f} {t[2]:.6f}\n")
+
+
+def write_kitti_workspace(out_dir, n_frames=1000, seed=0):
+    """The kitti-class circuit workspace of scripts/synth_features.py
+    (`--scene kitti`), byte for byte for the same n_frames and seed:
+    ftr.bin (keypoints, zero descriptors), fp.bin (verified pairs with loop
+    closures), camera.txt and gt_poses.txt.  Returns the image names."""
+    rng = np.random.default_rng(seed)
+    os.makedirs(out_dir, exist_ok=True)
+    centers, R, pts = kitti_scene(rng, n_frames)
+    frames_obs = project_all(centers, R, pts, rng)
+    names = [f"img{i:05d}.png" for i in range(n_frames)]
+    _write_features_and_poses(out_dir, names, frames_obs, R, centers)
+    pairs = build_kitti_pairs(frames_obs, n_frames, rng, centers)
+    IOF.write_frame_pairs(os.path.join(out_dir, "fp.bin"), pairs)
+    with open(os.path.join(out_dir, "camera.txt"), "w") as f:
+        f.write(f"0 PINHOLE {WS_W} {WS_H} {WS_FX} {WS_FX} "
+                f"{WS_W / 2.0} {WS_H / 2.0}\n")
     return names
+
+
+def write_unordered_workspace(out_dir, scene="unordered", n_frames=80,
+                              seed=0, distractors=0, focal_noise=0.08):
+    """The 1DSfM-class workspace of scripts/synth_features.py
+    (`main(..., scene, per_image_cameras=True, descriptors=True,
+    distractors=...)`), byte for byte for the same arguments: the landmark
+    ring (scene "unordered") or the street tour ("tour"), with n_frames
+    genuine frames and `distractors` junk frames after them; per frame a
+    SIMPLE_RADIAL camera (true focal U[430, 570], k1 U[-0.08, 0.04]).
+    Writes ftr.bin with matchable descriptors, size.bin, fp.bin (the
+    ground-truth covisibility pairs), camera_info.txt (EXIF-grade focals:
+    the true ones off by U[-focal_noise, +focal_noise], k = 0),
+    gt_cameras.txt (name focal k1) and gt_poses.txt.
+
+    Returns (names, observed point ids per frame, number of genuine scene
+    points): a point id below that number is scene structure, so two
+    frames' shared ids below it give their ground-truth covisibility."""
+    rng = np.random.default_rng(seed)
+    os.makedirs(out_dir, exist_ok=True)
+    make = tour_scene if scene == "tour" else unordered_scene
+    centers, R, pts = make(rng, n_frames, n_distractors=distractors)
+    n_total = len(centers)
+    focals = rng.uniform(430.0, 570.0, n_total)
+    k1s = rng.uniform(-0.08, 0.04, n_total)
+    frames_obs = project_all(centers, R, pts, rng, focals=focals, k1s=k1s)
+    names = [f"img{i:05d}.png" for i in range(n_total)]
+    descs = synth_descriptors(frames_obs, len(pts), rng)
+    _write_features_and_poses(out_dir, names, frames_obs, R, centers, descs)
+    IOF.write_image_size(os.path.join(out_dir, "size.bin"),
+                         np.tile(np.asarray([[WS_W, WS_H]], np.int32),
+                                 (n_total, 1)))
+    pairs = build_covisibility_pairs(frames_obs, n_total, rng)
+    IOF.write_frame_pairs(os.path.join(out_dir, "fp.bin"), pairs)
+    noisy = focals * (1.0 + rng.uniform(-focal_noise, focal_noise, n_total))
+    with open(os.path.join(out_dir, "camera_info.txt"), "w") as f:
+        for i in range(n_total):
+            f.write(f"{names[i]} SIMPLE_RADIAL {WS_W} {WS_H} "
+                    f"{noisy[i]:.3f} {WS_W / 2.0} {WS_H / 2.0} 0.0\n")
+    with open(os.path.join(out_dir, "gt_cameras.txt"), "w") as f:
+        for i in range(n_total):
+            f.write(f"{names[i]} {focals[i]:.6f} {k1s[i]:.8f}\n")
+    return (names, [ids for ids, _ in frames_obs],
+            len(pts) - DISTRACTOR_PTS * distractors)
