@@ -1,9 +1,10 @@
 """The port's CUDA matcher kernel (u8 wgmma dots fed by TMA) against its
 plain PyTorch version, and
 the port's solvers (bundle adjustment with and without intrinsics, the
-scale pose graph, rotation and translation averaging) and VLAD retrieval
-on the card against the same work on the CPU, and the float32 inverse of
-the intrinsics solve's 8x8 Jacobi blocks against float64.
+scale pose graph, rotation and translation averaging), VLAD retrieval, ORB
+extraction, Hamming matching and the tags' joint scale refinement on the
+card against the same work on the CPU, and the float32 inverse of the
+intrinsics solve's 8x8 Jacobi blocks against float64.
 
 Needs a CUDA device and nvcc; skips elsewhere.  On a machine with a GPU
 (and no JAX, which the repo's conftest imports), run:
@@ -425,3 +426,111 @@ def test_vlad_ranks_on_cuda_equal_cpu(cuda_device):
                                np.sign(v_cpu) * v_cpu * v_cpu, atol=1e-5)
     np.testing.assert_allclose(v_gpu @ v_gpu.T, v_cpu @ v_cpu.T, atol=1e-5)
     np.testing.assert_array_equal(r_gpu, r_cpu)
+
+
+def _bits_equal(a, b):
+    return float(np.mean(np.unpackbits(a, axis=1) == np.unpackbits(b, axis=1)))
+
+
+def test_orb_on_cuda_matches_cpu(cuda_device):
+    """ORB at the default options on one 640x480 rendered arc image: the
+    same pyramid (within 5e-5), FAST masks, scores within 1e-6 relative
+    (the 16 taps are summed in another order: 8 ulps at a score of 3.5);
+    the whole extraction finds the same keypoints (>= 99% of them: a score
+    a few ulps off can move a tie across the pool's cut), >= 99% of their
+    angles within 1e-4 rad and all within 1e-3 (where the centroid moments
+    are near zero, atan2 feels their summation order: 3 of 2,046 angles
+    differ by up to 4.3e-4 rad on an H100), and >= 99% equal descriptor
+    bits on the shared keypoints."""
+    from xrsfm_tpu_torch.ops import orb as TO
+
+    img = _arc_image()
+    cur_c = torch.from_numpy(img.astype(np.float32) / 255.0)
+    cur_g = cur_c.to(cuda_device)
+    for _ in range(3):
+        h, w = cur_c.shape
+        np.testing.assert_allclose(cur_g.cpu().numpy(), cur_c.numpy(),
+                                   rtol=0, atol=5e-5)
+        lv = cur_c
+        cc, sc = TO._fast_score(lv, TO.OrbOptions().fast_threshold)
+        cg, sg = TO._fast_score(lv.to(cuda_device),
+                                TO.OrbOptions().fast_threshold)
+        assert torch.equal(cg.cpu(), cc)
+        np.testing.assert_allclose(sg.cpu().numpy(), sc.numpy(), rtol=1e-6,
+                                   atol=0)
+        nh, nw = int(round(h / 1.2)), int(round(w / 1.2))
+        cur_c = TO._downscale(cur_c, nh, nw)
+        cur_g = TO._downscale(cur_g, nh, nw)
+    kc, dc = TO.OrbExtractor(device="cpu").extract(img)
+    kg, dg = TO.OrbExtractor(device=cuda_device).extract(img)
+    key_c = {tuple(k): i for i, k in enumerate(kc[:, :3].tolist())}
+    shared = [(key_c[tuple(k)], j) for j, k in enumerate(kg[:, :3].tolist())
+              if tuple(k) in key_c]
+    assert len(kc) > 1000 and len(shared) >= 0.99 * len(kc)
+    ic, ig = np.array(shared).T
+    dtheta = np.abs(kg[ig, 3] - kc[ic, 3])
+    assert np.mean(dtheta <= 1e-4) >= 0.99 and dtheta.max() < 1e-3
+    assert _bits_equal(dg[ig], dc[ic]) >= 0.99
+
+
+def _arc_image():
+    import os
+    import tempfile
+
+    from xrsfm_tpu_torch.utils import image_io
+
+    with tempfile.TemporaryDirectory() as d:
+        names, _, _ = synth.write_arc_dataset(d, n_cams=2, w=640, h=480,
+                                              f=562.5)
+        return image_io.read_gray(os.path.join(d, "images", names[0]))
+
+
+def test_hamming_matches_on_cuda_equal_cpu(cuda_device):
+    """Bit-equal matches and distances on both devices, planted ties and
+    the 4096 cap included."""
+    rng = np.random.default_rng(3)
+    for n, m in ((300, 500), (6000, 5000)):
+        d1 = rng.integers(0, 256, (n, 32), dtype=np.uint8)
+        d2 = rng.integers(0, 256, (m, 32), dtype=np.uint8)
+        k = min(n, m) - 16
+        d2[:k] = d1[:k] ^ ((rng.random((k, 32)) < 0.03)
+                           * rng.integers(0, 256, (k, 32))).astype(np.uint8)
+        d2[k: k + 8] = d2[:8]
+        mc, dc = TM.match_pair_host_hamming(d1, d2, device="cpu")
+        mg, dg = TM.match_pair_host_hamming(d1, d2, device=cuda_device)
+        assert np.array_equal(mg, mc) and np.array_equal(dg, dc)
+        if n > 4096:
+            assert len(mg) == 4096
+
+
+def test_joint_refine_scale_on_cuda_matches_cpu(cuda_device):
+    """Tag corner triangulation and the joint scale refinement on both
+    devices: the refined scale within 1e-4 relative."""
+    from xrsfm_tpu_torch.base.map import SfMMap
+    from xrsfm_tpu_torch.feature import tags as TT
+    from xrsfm_tpu_torch.utils import geometry as G
+
+    rng = np.random.default_rng(0)
+    m = SfMMap()
+    m.add_camera(0, 1, [500.0, 500.0, 320.0, 240.0], 640, 480)
+    for i in range(8):
+        ang = (i / 7 - 0.5) * 1.2
+        c = np.array([4 * np.sin(ang), 0.3 * rng.normal(), -4 * np.cos(ang)])
+        z = -c / np.linalg.norm(c)
+        x = np.cross([0.0, 1.0, 0.0], z)
+        x /= np.linalg.norm(x)
+        R = np.stack([x, np.cross(z, x), z])
+        f = m.add_frame(f"im{i}.png", 0, np.zeros((1, 2), np.float32))
+        m.q[f] = G.rotmat_to_quat_np(R)
+        m.t[f] = -R @ c
+        m.registered[f] = True
+    centers = rng.uniform(-0.8, 0.8, (3, 3))
+    det, _ = synth.tag_detections(m, centers, 0.113, 2.5, seed=0)
+    scales = []
+    for dev in ("cpu", cuda_device):
+        corners = TT.triangulate_tag_corners(m, det, device=dev)
+        s0, poses = TT.estimate_scale_from_corners(corners, 0.113)
+        scales.append(TT.joint_refine_scale(m, det, corners, s0, poses,
+                                            0.113, device=dev))
+    a, b = scales
+    assert abs(a - b) / a < 1e-4 and abs(a - 2.5) / 2.5 < 5e-3

@@ -233,10 +233,10 @@ def test_cuda_device_raises_without_a_gpu(tmp_path):
 
 
 @pytest.mark.parametrize("change,item", [
-    # refine_intrinsics (item 3) runs since intrinsics BA was ported
-    # (tests/test_torch_unordered.py); the cases keep their ids
-    pytest.param(dict(n_devices=2), "item 5", id="change1-item 5"),
-    pytest.param(dict(snapshot_every=10), "item 6", id="change2-item 6"),
+    # refine_intrinsics runs since intrinsics BA was ported
+    # (tests/test_torch_unordered.py), snapshot_every since snapshots were
+    # (tests/test_torch_snapshot.py); the case keeps its id
+    pytest.param(dict(n_devices=2), "parallel/", id="change1-item 5"),
 ])
 def test_unported_options_raise(tmp_path, change, item):
     """Every option outside the ported configuration raises
@@ -282,15 +282,15 @@ def test_loop_options_run_on_cpu(option):
 
 
 def test_unported_entry_options_raise(tmp_path):
-    with pytest.raises(NotImplementedError, match="item 6"):
-        TRR.main(str(tmp_path), "", str(tmp_path / "o"), resume=True,
-                 device="cpu")
+    """Several devices, the one part of the JAX package not ported, raise
+    NotImplementedError naming ROADMAP.md's parallel/ item (resume, which
+    raised too, runs since snapshots were ported)."""
     m = build_map(TMap, make_scene(n_cams=3, n_pts=20, seed=1))
-    with pytest.raises(NotImplementedError, match="item 5"):
+    with pytest.raises(NotImplementedError, match="item 1: parallel/"):
         ba_glue.run_ba(m, [0, 1], mesh=object(), device="cpu")
     from xrsfm_tpu_torch.pipelines import rec_1dsfm
 
-    with pytest.raises(NotImplementedError, match="item 5"):
+    with pytest.raises(NotImplementedError, match="item 1: parallel/"):
         rec_1dsfm.main(str(tmp_path), "", str(tmp_path / "o"), n_devices=2,
                        device="cpu")
 

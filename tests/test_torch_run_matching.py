@@ -162,8 +162,9 @@ def test_retrieve_cli_writes_jax_retrieval_text(scene, tmp_path):
 
 def test_main_without_gpu_raises_and_unported_types_raise(scene, tmp_path):
     """device="cuda" without a GPU is an error, not a CPU run; an unknown
-    matching type is an error; ORB features, not ported yet, raise
-    NotImplementedError naming their ROADMAP.md item."""
+    matching type is an error.  ORB features, which raised
+    NotImplementedError before the ORB extractor was ported, now extract
+    (tests/test_torch_orb.py holds them to the JAX package)."""
     _, images, _, _, _ = scene
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
@@ -172,7 +173,9 @@ def test_main_without_gpu_raises_and_unported_types_raise(scene, tmp_path):
         assert not os.path.exists(tmp_path / "x")
     with pytest.raises(ValueError, match="unknown matching type"):
         TRM.main(images, "", "exhaustive", str(tmp_path / "c"), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 10"):
-        TRM.get_features(images, str(tmp_path / "ftr.bin"),
-                         IOF.load_image_names(images), feature_type="orb",
-                         device="cpu")
+    names = IOF.load_image_names(images)
+    feats = TRM.get_features(images, str(tmp_path / "ftr.bin"), names,
+                             feature_type="orb", verbose=False, device="cpu")
+    assert [f.name for f in feats] == names
+    assert all(len(f.keypoints) > 0 and f.descriptors.shape[1] == 128
+               and not f.descriptors[:, 32:].any() for f in feats)

@@ -142,7 +142,7 @@ def test_rec_1dsfm_entry_points_refuse(tmp_path):
         with pytest.raises(RuntimeError, match="CUDA"):
             TCLI.main(["rec_1dsfm", str(tmp_path), "x.txt",
                        str(tmp_path / "o")])
-    with pytest.raises(NotImplementedError, match="item 5"):
+    with pytest.raises(NotImplementedError, match="item 1: parallel/"):
         rec_1dsfm.main(str(tmp_path), "", str(tmp_path / "o"), n_devices=2,
                        device="cpu")
 

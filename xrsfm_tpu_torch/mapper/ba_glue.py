@@ -163,7 +163,7 @@ def run_ba(
     if mesh is not None:
         raise NotImplementedError(
             "sharded BA over a device mesh is not ported yet (ROADMAP.md, "
-            "Still to port, item 5: parallel/)")
+            "queue 1, item 1: parallel/)")
     gauge = [m.init_id1, m.init_id2] if m.init_id1 >= 0 else []
     t0 = time.perf_counter()
     prob, frames, tracks, n_obs = build_problem(

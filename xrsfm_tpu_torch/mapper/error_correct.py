@@ -19,13 +19,16 @@ For a newly registered frame (CheckAndCorrectPose):
      junction, then the verified matches of every epipolar-inconsistent
      pair) and retriangulate every track;
   5. two rounds of full GBA, a global merge sweep, two more rounds.
-The JAX package's XRSFM_DUMP_CORRECTION_SNAPSHOT hooks are left out: they
-need base/snapshot (ROADMAP.md, Still to port, item 6).
+With XRSFM_DUMP_CORRECTION_SNAPSHOT set to a path prefix, a correction
+saves the map before it (<prefix>.pre.frame<N>.npz, base/snapshot), the
+alternative pose (<prefix>.alt.frame<N>.npz) and the map after the fusion
+(<prefix>.frame<N>.npz), as the JAX package does.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 from collections import deque
 from typing import List, Optional
 
@@ -34,6 +37,7 @@ import torch
 
 from . import kernels, triangulate
 from .register import RegisterOptions
+from ..base import snapshot as SNAP
 from ..base.map import SfMMap
 from ..ops import epipolar
 from ..optim import pose_graph as PG
@@ -630,6 +634,11 @@ def check_and_correct_pose(
         th = min(th, opts.hypothesis_dist_rel * float(np.median(baselines)))
     if np.linalg.norm(c_cur - c_alt) <= th:
         return False
+    dump = os.environ.get("XRSFM_DUMP_CORRECTION_SNAPSHOT")
+    if dump:
+        SNAP.save_snapshot(m, dump + f".pre.frame{frame}.npz")
+        np.savez(dump + f".alt.frame{frame}.npz", q_alt=q_alt, t_alt=t_alt,
+                 bad=np.asarray(bad))
     corrected = correct_loop(m, frame, q_alt, t_alt, bad, opts, device=device)
     if corrected:
         # merge duplicates across the loop by keypoint identity (reference:
@@ -640,6 +649,8 @@ def check_and_correct_pose(
         n_fused += fuse_inconsistent_pair_tracks(m, opts, device=device)
         triangulate.retriangulate(
             m, np.nonzero(m.track_valid[: m.num_tracks])[0], device=device)
+        if dump:
+            SNAP.save_snapshot(m, dump + f".frame{frame}.npz")
         # full GBA where the reference runs keyframe GBA (KGBA,
         # error_corrector.cc:230-241), in two rounds: each run_ba restarts
         # the damping, which lets LM leave the high-lambda plateau the

@@ -10,8 +10,9 @@ intrinsics-refining (refine_intrinsics, the 1DSfM regime), with loop
 correction (correct_pose, mapper/error_correct) and the trial-gated
 global pose polish (global_polish / rot_avg_polish, optim/global_pose and
 optim/rot_avg, followed by a resurrection round for frames that failed
-against the drifted map).  Several devices and snapshots raise
-NotImplementedError naming their ROADMAP.md item.
+against the drifted map), with snapshots every snapshot_every
+registrations (base/snapshot) and resumption from a restored map.  Several
+devices raise NotImplementedError naming their ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ import numpy as np
 
 from . import ba_glue, error_correct as EC, initialize, keyframe as KF
 from . import register, triangulate
+from ..base import snapshot as SNAP
 from ..base.map import SfMMap
 from ..device import resolve_device
 from ..optim import global_pose, rot_avg
@@ -71,28 +73,20 @@ class MapperOptions:
     init_id1: int = -1
     init_id2: int = -1
     verbose: bool = True
-    snapshot_every: int = 0  # not ported
+    # save a snapshot (base/snapshot) to snapshot_path every N accepted
+    # registrations (0 = never)
+    snapshot_every: int = 0
     snapshot_path: str = ""
     # stop after N successful registrations (0 = unlimited)
     max_registrations: int = 0
 
 
-# options outside the ported configuration, with their ROADMAP.md item
-_NOT_PORTED = (
-    ("snapshot_every", "Still to port, item 6: snapshot/resume"),
-)
-
-
 def check_supported(opts: MapperOptions):
     """Raise NotImplementedError for an option the port does not have."""
-    for name, item in _NOT_PORTED:
-        if getattr(opts, name):
-            raise NotImplementedError(
-                f"MapperOptions.{name} is not ported yet (ROADMAP.md, {item})")
     if opts.n_devices > 1:
         raise NotImplementedError(
             "MapperOptions.n_devices > 1 is not ported yet (ROADMAP.md, "
-            "Still to port, item 5: parallel/)")
+            "queue 1, item 1: parallel/)")
 
 
 def polish_backup(m: SfMMap):
@@ -162,22 +156,27 @@ class IncrementalMapper:
         o = self.opts
         dev = self.device
         t_start = time.time()
-        if not initialize.find_and_initialize(m, o.init, o.init_id1,
-                                              o.init_id2, device=dev):
-            self._log("initialization failed")
-            return False
-        self._log(f"initialized with pair ({m.init_id1}, {m.init_id2}), "
-                  f"{m.num_tracks} tracks")
-        ba_glue.run_ba(m, [m.init_id1, m.init_id2],
-                       BAOptions(max_iters=o.gba_iters, huber_px=4.0),
-                       device=dev)
+        n_reg0 = int(np.count_nonzero(m.registered))
+        if m.init_id1 >= 0 and n_reg0 >= 2:
+            # resumed from a snapshot: the map is initialized already
+            self._log(f"resuming with {n_reg0} registered frames")
+        else:
+            if not initialize.find_and_initialize(m, o.init, o.init_id1,
+                                                  o.init_id2, device=dev):
+                self._log("initialization failed")
+                return False
+            self._log(f"initialized with pair ({m.init_id1}, {m.init_id2}), "
+                      f"{m.num_tracks} tracks")
+            ba_glue.run_ba(m, [m.init_id1, m.init_id2],
+                           BAOptions(max_iters=o.gba_iters, huber_px=4.0),
+                           device=dev)
         self.stats.time_init = time.time() - t_start
 
         # growth and polish, with one resurrection round: after a global
         # pose rewrite, frames that failed at drift junctions register
         # against the polished map
         for growth_round in range(2):
-            self._grow(m)
+            self._grow(m, max(2, n_reg0))
             rotated = self._final_polish(m)
             fresh = (~m.registered) & m.registered_fail
             if growth_round == 0 and rotated and np.count_nonzero(fresh):
@@ -222,12 +221,13 @@ class IncrementalMapper:
         self.stats.time_check += time.time() - t0
         return corrected
 
-    def _grow(self, m: SfMMap):
+    def _grow(self, m: SfMMap, num_reg_at_gba: int):
         """Register, triangulate, filter and merge frames batch by batch,
-        with LBA per batch and KGBA whenever the map grew by gba_growth."""
+        with LBA per batch, KGBA whenever the map grew by gba_growth since
+        num_reg_at_gba registered frames, and a snapshot every
+        snapshot_every registrations."""
         o = self.opts
         dev = self.device
-        num_reg_at_gba = 2
         stop = False
         while not stop:
             t0 = time.time()
@@ -357,6 +357,10 @@ class IncrementalMapper:
                     # refined cameras invalidate registration failures
                     # judged under the old intrinsics
                     self._post_correction_amnesty(m)
+            if (o.snapshot_every and o.snapshot_path and accepted
+                    and self.stats.registered % o.snapshot_every
+                    < len(accepted)):
+                SNAP.save_snapshot(m, o.snapshot_path)
             if o.max_registrations and self.stats.registered >= o.max_registrations:
                 self._log(f"stopping after {self.stats.registered} "
                           f"registrations (max_registrations)")

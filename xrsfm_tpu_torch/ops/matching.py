@@ -1,4 +1,5 @@
-"""Batched SIFT descriptor matching (port of xrsfm_tpu/ops/matching.py).
+"""Batched SIFT descriptor matching and ORB Hamming matching (port of
+xrsfm_tpu/ops/matching.py).
 
 All-pairs descriptor dot products per image pair, then row best / second
 best and column best for the mutual check, accepted by the reference's
@@ -12,6 +13,10 @@ The statistics pass is `topstats`: on a CUDA tensor it launches the
 hand-written kernel in ``csrc/topstats.cu``; on a CPU tensor it runs the
 plain PyTorch version `topstats_reference`, which has the same semantics
 bit for bit.  There is no fallback between the two.
+
+ORB descriptors (32 bytes) match by Hamming distance through a {0,1}
+matmul (`match_descriptors_hamming`), which the JAX package runs as an
+XLA product outside any Pallas kernel: plain PyTorch ops here too.
 """
 
 from __future__ import annotations
@@ -264,6 +269,86 @@ def match_pair_host(feats1, feats2, dist_th=0.7, ratio_th=0.8,
     m2 = np.zeros(k, bool)
     m2[:m_] = True
     matches, cnt, dists = match_descriptors(
+        torch.from_numpy(d1).to(dev), torch.from_numpy(d2).to(dev),
+        torch.from_numpy(m1).to(dev), torch.from_numpy(m2).to(dev),
+        dist_th, ratio_th, min(k, 4096),
+    )
+    cnt = int(cnt)
+    out = matches.cpu().numpy()
+    out = out[out[:, 0] >= 0][:cnt]
+    return out.astype(np.int32), dists.cpu().numpy()[: len(out)]
+
+
+def match_descriptors_hamming(d1, d2, mask1, mask2, dist_th: int = 80,
+                              ratio_th: float = 0.9,
+                              max_matches: int = 4096):
+    """Match two 256-bit ORB descriptor sets by Hamming distance (port of
+    xrsfm_tpu/ops/matching.match_descriptors_hamming; reference OrbMatch,
+    src/feature/feature_processing.cc:156-219: accept when best <= 80,
+    best <= 0.9 * second best, and mutual best).
+
+    The descriptors are unpacked to 256 {0,1} bits and hamming(a, b) =
+    |a| + |b| - 2 a.b, so the distance matrix is one float32 matmul in
+    full precision (exact: every value is a small integer).  Ties go to
+    the lower index (argmin) on rows and columns.
+
+    d1 [N,32] uint8, d2 [M,32] uint8, mask1 [N], mask2 [M] validity.
+    Returns (matches [max_matches, 2] int32 padded with -1, num_matches,
+    distances [max_matches] in bits)."""
+    dev = d1.device
+    shifts = torch.arange(8, dtype=torch.uint8, device=dev)
+    b1 = ((d1[:, :, None] >> shifts) & 1).reshape(d1.shape[0], 256)
+    b2 = ((d2[:, :, None] >> shifts) & 1).reshape(d2.shape[0], 256)
+    b1 = b1.to(torch.float32)
+    b2 = b2.to(torch.float32)
+    with full_precision():
+        dot = b1 @ b2.T  # [N,M]
+    dist = b1.sum(1)[:, None] + b2.sum(1)[None, :] - 2.0 * dot
+    big = 1024.0  # > any 256-bit Hamming distance
+    dist = torch.where(mask1[:, None] & mask2[None, :], dist, big)
+
+    rows_all = torch.arange(dist.shape[0], device=dev)
+    best_j = torch.argmin(dist, dim=1)  # [N], first of equal minima
+    d_best = dist[rows_all, best_j]
+    masked = dist.clone()
+    masked[rows_all, best_j] = big
+    d_second = masked.min(dim=1).values
+    col_best_i = torch.argmin(dist, dim=0)  # [M]
+    mutual = col_best_i[best_j] == rows_all
+
+    ok = (mask1 & (d_best < big) & (d_best <= dist_th)
+          & (d_best <= ratio_th * d_second) & mutual)
+    # accepted rows first, in index order (a stable sort of ~ok)
+    order = torch.sort((~ok).to(torch.uint8), stable=True).indices
+    rows = order[:max_matches]
+    valid = ok[rows]
+    matches = torch.stack([
+        torch.where(valid, rows, -1),
+        torch.where(valid, best_j[rows], -1),
+    ], dim=-1).to(torch.int32)
+    return matches, ok.sum(), torch.where(valid, d_best[rows], 0.0)
+
+
+def match_pair_host_hamming(descs1, descs2, dist_th=80, ratio_th=0.9,
+                            device="cuda"):
+    """Host wrapper for ORB matching on [N,32] uint8 descriptor arrays:
+    pads both to one power-of-two size k (>= 64), matches on `device` with
+    at most min(k, 4096) matches, returns (matches [n, 2] int32,
+    distances [n]) as numpy."""
+    dev = resolve_device(device)
+    n, m_ = len(descs1), len(descs2)
+    k = 1
+    while k < max(n, m_, 64):
+        k *= 2
+    d1 = np.zeros((k, 32), np.uint8)
+    d2 = np.zeros((k, 32), np.uint8)
+    d1[:n] = descs1
+    d2[:m_] = descs2
+    m1 = np.zeros(k, bool)
+    m1[:n] = True
+    m2 = np.zeros(k, bool)
+    m2[:m_] = True
+    matches, cnt, dists = match_descriptors_hamming(
         torch.from_numpy(d1).to(dev), torch.from_numpy(d2).to(dev),
         torch.from_numpy(m1).to(dev), torch.from_numpy(m2).to(dev),
         dist_th, ratio_th, min(k, 4096),

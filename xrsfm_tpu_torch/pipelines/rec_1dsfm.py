@@ -38,7 +38,7 @@ def main(bin_dir: str, camera_info_path: str, output_dir: str,
     if n_devices > 1:
         raise NotImplementedError(
             "rec_1dsfm over several devices is not ported yet (ROADMAP.md, "
-            "Still to port, item 5: parallel/)")
+            "queue 1, item 1: parallel/)")
     t0 = time.time()
     opts = MapperOptions()
     # reference th_rpe_gba = 4 px for internet scenes (rec_1dsfm.cc:88):

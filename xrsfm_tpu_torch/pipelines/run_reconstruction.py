@@ -4,11 +4,13 @@ src/run_reconstruction.cc).
 
 Usage: python -m xrsfm_tpu_torch.cli run_reconstruction <bin_dir>
        <camera_txt> <output_dir> [--init_id1 N --init_id2 N]
-       [--correct_pose] [--device cuda]
+       [--correct_pose] [--snapshot_every N] [--resume] [--device cuda]
 
 Reads ftr.bin + fp.bin and a single-camera cameras.txt, runs the
 incremental mapper on `device`, and writes cameras.bin / images.bin /
-points3D.bin and trajectory.txt.
+points3D.bin and trajectory.txt.  With snapshot_every the mapper saves
+<output_dir>/snapshot.npz every N registrations; resume restores that
+snapshot onto the freshly built map and continues from it.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ from typing import Optional
 
 import numpy as np
 
+from ..base import snapshot as SNAP
 from ..base.colmap_bridge import map_to_colmap, write_trajectory
 from ..base.map import SfMMap
 from ..device import resolve_device
@@ -78,13 +81,8 @@ def main(
     correct_pose turns on loop correction and, with it, the global pose
     polish (the drift-prone sequential regime).  stats, when given,
     receives the mapper's MapperStats and the stage seconds.
-    snapshot_every, resume and n_devices > 1 are not ported and raise
-    NotImplementedError."""
+    n_devices > 1 is not ported and raises NotImplementedError."""
     dev = resolve_device(device)
-    if resume:
-        raise NotImplementedError(
-            "resume is not ported yet (ROADMAP.md, Still to port, item 6: "
-            "snapshot/resume)")
     t0 = time.time()
     opts = opts or MapperOptions()
     opts.init_id1 = init_id1
@@ -95,10 +93,17 @@ def main(
     opts.global_polish = opts.global_polish or opts.correct_pose
     if n_devices > 1:
         opts.n_devices = n_devices
+    snap_path = os.path.join(output_dir, "snapshot.npz")
     if snapshot_every:
         opts.snapshot_every = snapshot_every
+        opts.snapshot_path = snap_path
     mapper = IncrementalMapper(opts, device=dev)  # raises on the unported
     m = build_map(bin_dir, camera_txt)
+    if resume and os.path.exists(snap_path):
+        SNAP.restore_into(m, snap_path)
+        print(f"[reconstruction] resumed from {snap_path} "
+              f"({int(np.count_nonzero(m.registered))} frames registered)",
+              flush=True)
     ok = mapper.reconstruct(m)
     if stats is not None:
         stats["mapper"] = mapper.stats

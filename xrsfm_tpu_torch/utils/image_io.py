@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import struct
 import zlib
+from typing import Optional
 
 import numpy as np
 
@@ -149,6 +150,15 @@ def read_gray(path: str) -> np.ndarray:
     """[H, W] uint8 grayscale of a PNG or PGM file."""
     img = read_image(path)
     return img if img.ndim == 2 else rgb_to_gray(img)
+
+
+def read_gray_or_none(path: str) -> Optional[np.ndarray]:
+    """read_gray, or None when the file is not a readable PNG/PGM (as
+    cv2.imread returns None)."""
+    try:
+        return read_gray(path)
+    except (OSError, ValueError):
+        return None
 
 
 def _chunk(ctype: bytes, body: bytes) -> bytes:

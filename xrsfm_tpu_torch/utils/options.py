@@ -1,11 +1,12 @@
 """Option conversion from the JAX package's dataclasses.
 
 `from_jax_options` takes an xrsfm_tpu options instance (SiftOptions,
-MatchingOptions, MapperOptions, InitOptions, RegisterOptions, TriOptions,
-ErrorCorrectOptions or BAOptions; read field by field, without importing
-that package), or a dict of one class's fields, and returns the port's
-dataclass of the same name.  MapperOptions' nested init / reg / tri
-options are converted too, from dataclasses or dicts.
+OrbOptions, MatchingOptions, MapperOptions, InitOptions,
+RegisterOptions, TriOptions, ErrorCorrectOptions or BAOptions; read field
+by field, without importing that package), or a dict of one class's
+fields, and returns the port's dataclass of the same name.
+MapperOptions' nested init / reg / tri options are converted too, from
+dataclasses or dicts.
 
 `pose_graph_from_jax` carries a JAX PoseGraphProblem (its arrays read as
 numpy) over to the port's, so that both packages solve the same graph.
@@ -23,12 +24,13 @@ from ..mapper.incremental import MapperOptions
 from ..mapper.initialize import InitOptions
 from ..mapper.register import RegisterOptions
 from ..mapper.triangulate import TriOptions
+from ..ops.orb import OrbOptions
 from ..ops.sift import SiftOptions
 from ..optim.ba import BAOptions
 from ..optim.pose_graph import PoseGraphProblem
 
 _TARGETS = {cls.__name__: cls for cls in (
-    SiftOptions, MatchingOptions, MapperOptions, InitOptions,
+    SiftOptions, OrbOptions, MatchingOptions, MapperOptions, InitOptions,
     RegisterOptions, TriOptions, ErrorCorrectOptions, BAOptions)}
 # nested option fields and their classes
 _NESTED = {(MapperOptions, "init"): InitOptions,

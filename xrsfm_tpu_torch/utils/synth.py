@@ -1,8 +1,8 @@
 """Synthetic data: the arc scene of scripts/synth_dataset.py, the
 kitti-class circuit and the unordered (1DSfM-class) workspaces of
 scripts/synth_features.py, seeded descriptor sets for the matcher's kernel
-checks, and the bundle-adjustment benchmark problem of
-bench.make_ba_problem.
+checks, the bundle-adjustment benchmark problem of bench.make_ba_problem,
+and the blob texture of the ORB and SIFT tests.
 
 The arc scene ray-casts two textured Lambertian planes (a wall and a
 floor) from an arc of cameras, so every pixel observes a fixed 3D point
@@ -47,6 +47,23 @@ def make_texture(rng, res=1024, smooth=3):
     t = gaussian_filter(t, smooth, mode="mirror", truncate=4.0)
     t = (t - t.min()) / (t.max() - t.min() + 1e-9)
     return t
+
+
+def blob_texture(h=256, w=256, seed=0, n_blobs=120):
+    """Random Gaussian-blob texture with well-defined interest points, in
+    [0, 1], and the blob centers (the draws of tests/test_sift.py's
+    make_texture, which the ORB and SIFT tests use)."""
+    rng = np.random.default_rng(seed)
+    img = np.zeros((h, w), np.float32)
+    ys = rng.uniform(20, h - 20, n_blobs)
+    xs = rng.uniform(20, w - 20, n_blobs)
+    sg = rng.uniform(1.5, 4.0, n_blobs)
+    amp = rng.uniform(0.4, 1.0, n_blobs) * rng.choice([-1, 1], n_blobs)
+    yy, xx = np.mgrid[0:h, 0:w]
+    for y, x, s, a in zip(ys, xs, sg, amp):
+        img += a * np.exp(-((yy - y) ** 2 + (xx - x) ** 2) / (2 * s * s))
+    img = (img - img.min()) / (img.max() - img.min())
+    return img, np.stack([xs, ys], -1)
 
 
 class Plane:
@@ -674,3 +691,48 @@ def write_unordered_workspace(out_dir, scene="unordered", n_frames=80,
             f.write(f"{names[i]} {focals[i]:.6f} {k1s[i]:.8f}\n")
     return (names, [ids for ids, _ in frames_obs],
             len(pts) - DISTRACTOR_PTS * distractors)
+
+
+def tag_detections(m, centers, tag_length, scale, seed=0, noise_px=0.5):
+    """Square tags of side tag_length meters centered at `centers` [T, 3]
+    of a map whose unit is 1/scale meters, facing the mean center of its
+    registered cameras, in feature/tags.canonical_corners' corner order;
+    their corners projected into every registered frame that sees all
+    four (in front of the camera, inside the image), with Gaussian pixel
+    noise.  Returns (detections {frame: {tag: [4, 2] pixels}}, corners
+    {tag: [4, 3] world}), as feature/tags' functions take them."""
+    import torch
+
+    from . import camera as Cam
+    from . import geometry as G
+
+    rng = np.random.default_rng(seed)
+    h = tag_length / 2.0
+    canon = np.array([[-h, h, 0.0], [h, h, 0.0], [h, -h, 0.0],
+                      [-h, -h, 0.0]])
+    reg = np.nonzero(m.registered)[0]
+    eye = np.mean([G.pose_center_np(m.q[f], m.t[f]) for f in reg], axis=0)
+    corners = {}
+    for tag, c in enumerate(np.asarray(centers, np.float64)):
+        n = eye - c
+        n /= np.linalg.norm(n)
+        u = np.cross(n, rng.normal(size=3))
+        u /= np.linalg.norm(u)
+        R = np.stack([u, np.cross(n, u), n], axis=1)  # proper rotation
+        corners[tag] = c + scale * canon @ R.T
+    detections = {}
+    for f in reg:
+        cid = int(m.cam_of_frame[f])
+        _, _, w, hgt = m.camera_models[cid]
+        params = torch.as_tensor(np.asarray(m.cameras[cid], np.float64))
+        seen = {}
+        for tag, cw in corners.items():
+            xy, z = Cam.project(params, torch.as_tensor(m.q[f]),
+                                torch.as_tensor(m.t[f]), torch.as_tensor(cw))
+            xy, z = xy.numpy(), z.numpy()
+            if (z > 1e-3).all() and (xy >= 0).all() and \
+                    (xy[:, 0] < w).all() and (xy[:, 1] < hgt).all():
+                seen[tag] = xy + rng.normal(scale=noise_px, size=xy.shape)
+        if seen:
+            detections[int(f)] = seen
+    return detections, corners
