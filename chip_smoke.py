@@ -106,7 +106,26 @@ Phases, each reported on its own line:
      the CPU;
  15. phase 10 through the CLI: python -m xrsfm_tpu_torch.cli
      run_triangulation --config cfg.json --profile_dir d: the trace file
-     exists and the model is bit-equal to phase 10's direct call.
+     exists and the model is bit-equal to phase 10's direct call;
+ 16. several shards (parallel/): a mesh of 4 shards on cuda:0 (and, on a
+     machine with two or more cards, one shard per card; the line says
+     which layouts ran).  feature/matching.match_and_verify_pairs(mesh=)
+     on phase 4's features and 722 pairs: verified pairs, F and inlier
+     masks bit-equal to phase 4's, topstats launched on every shard
+     device and never plain.  parallel/dist_ba.solve_distributed against
+     solve_ba at the same schedule (50 PCG iterations at 1e-6) on bench.py's
+     problems from utils/synth.ba_problem: 140k observations, 5 LM
+     iterations; the 14-dof intrinsics solve, 10 iterations from a 3% focal
+     error (Huber 32 px); 1,114,041 observations (1,024 cameras, 160,000
+     points, 12 iterations): final-cost parity under 1% each, focal within
+     1% of the single-device solve's, and the 1.1M solves' seconds, LM
+     iterations/s and peak device memory.  Determinism: two sharded solves
+     and a one-rank NCCL group (file store) over the pod mesh (dcn 1, ici
+     4) give one pytree_checksum.  IncrementalMapper(mesh=4 shards) on
+     phase 4's bins: phase 7's gates, and distributed BA solves on CUDA.
+     No fallback: run_reconstruction.main(n_devices=2, device="cuda") on
+     a one-card machine raises; with two or more cards it runs and is
+     gated as the mapper.
 
 Any failure exits non-zero.  Without a CUDA device it exits 1 at once.
 The last two lines of standard output are the kernel summary (JSON: per
@@ -213,6 +232,13 @@ RESUME = dict(max_registrations=24, snapshot_every=4)
 # Phase 14: tags of 0.113 m (estimate_scale's default) at a known scale,
 # 0.5 px corner noise; tests/test_tags.py's gate on the refined scale
 TAG_LENGTH, TAG_NOISE_PX, TAG_MAX_ERR = 0.113, 0.5, 5e-3
+# Phase 16: virtual shards on one card; bench.py's two BA sizes
+# (bench.py:288; __graft_entry__.dryrun_multichip's 5 and 10 iterations and
+# its 1% parity gate)
+SHARDS = 4
+BA_SIZES = dict(small=dict(n_cams=200, n_pts=20000, obs_per_pt=7, seed=0),
+                large=dict(n_cams=1024, n_pts=160000, obs_per_pt=7, seed=0))
+DIST_PARITY = 0.01
 
 
 def fail(msg):
@@ -398,7 +424,7 @@ def match_phases(TM, RM, IOF, synth, work):
     print(f"[phase 5] gates passed: {len(verified)} verified pairs, all "
           f"{N_IMAGES - 1} adjacent; worst ground-truth epipolar inlier "
           f"share {worst:.4f}", flush=True)
-    return launches, counts, poses, K
+    return launches, counts, poses, K, verified
 
 
 def ba_phase():
@@ -784,13 +810,13 @@ def intrinsic_block_precision(m):
     p, _, _, _ = ba_glue.build_problem(m, frames, "cuda")
     r, z, Jc, Jp = ba._residuals_and_jacobians(p, with_intri=True)
     _, w = ba._robust_cost_and_weight(r, z, p.obs_w, 4.0)
-    U, V, W, _, _ = ba._build_normal_blocks(p, r, Jc, Jp, w)
+    U, V, W, _, _ = ba._build_normal_blocks([p], [r], [Jc], [Jp], [w])
     lam = BA_OPTS["lam_init"]
     eye14 = torch.eye(14, device="cuda")
     eye3 = torch.eye(3, device="cuda")
     Ud = U + lam * (U * eye14) + 1e-8 * eye14
     Vinv = ba._inv3x3(V + lam * (V * eye3) + 1e-8 * eye3)
-    _, Si = ba._jacobi_blocks(p, Ud, Vinv, W,
+    _, Si = ba._jacobi_blocks([p], Ud, Vinv, W,
                               ba._TiedSpace(p.cam_kam, p.cam_q.shape[0]))
     Si = Si[: int(p.cam_kam.max()) + 1]
     eye8 = torch.eye(8, device="cuda").expand(len(Si), 8, 8)
@@ -1214,6 +1240,208 @@ def cli_phase(work, model):
     print("[phase 15] gates passed", flush=True)
 
 
+def _pair_bits(pairs):
+    return [(p.id1, p.id2, p.inlier_num, p.matches.tobytes(),
+             p.distances.tobytes(), p.E.tobytes(), p.inlier_mask.tobytes())
+            for p in pairs]
+
+
+def _state_checksum(prob):
+    from xrsfm_tpu_torch.parallel.checksum import pytree_checksum
+
+    return pytree_checksum({"q": prob.cam_q, "t": prob.cam_t,
+                            "x": prob.points, "k": prob.cam_intri})
+
+
+def _timed(fn):
+    """(result, host seconds, peak device bytes) of fn, synchronised."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, torch.cuda.max_memory_allocated()
+
+
+def dist_ba_compare(mesh, tag, d, iters, huber_px=4.0, intri=False):
+    """solve_distributed on `mesh` against solve_ba at the same schedule on
+    problem d; fails above DIST_PARITY.  Returns (distributed solution,
+    its cost, the single-device solution)."""
+    from xrsfm_tpu_torch.optim import ba
+    from xrsfm_tpu_torch.parallel import dist_ba
+
+    prob = ba.BAProblem.from_numpy("cuda", **d)
+    stats = {}
+    (sol, cost), t_d, mem_d = _timed(lambda: dist_ba.solve_distributed(
+        mesh, prob, max_iters=iters, huber_px=huber_px, stats=stats,
+        optimize_intrinsics=intri))
+    (single, info), t_s, mem_s = _timed(lambda: ba.solve_ba(prob, ba.BAOptions(
+        max_iters=iters, huber_px=huber_px, cg_iters=dist_ba.CG_ITERS,
+        cg_tol=dist_ba.CG_TOL, optimize_intrinsics=intri)))
+    parity = abs(cost - info["final_cost"]) / info["final_cost"]
+    print(f"[phase 16] BA {tag}: {len(d['obs_cam'])} observations, "
+          f"{len(d['cam_q'])} cameras, {len(d['points'])} points; sharded "
+          f"cost {stats['initial_cost']:.3f} -> {cost:.3f} in "
+          f"{stats['iters']} LM iterations, {t_d:.3f} s "
+          f"({stats['iters'] / t_d:.3f} LM iterations/s), peak "
+          f"{mem_d / 2**20:.1f} MiB; single-device {info['final_cost']:.3f} "
+          f"in {info['iters']}, {t_s:.3f} s ({info['iters'] / t_s:.3f} LM "
+          f"iterations/s), peak {mem_s / 2**20:.1f} MiB; parity "
+          f"{100 * parity:.5f}%", flush=True)
+    if not (np.isfinite(cost) and parity < DIST_PARITY):
+        fail(f"distributed BA {tag}: cost {cost} against {info['final_cost']}")
+    return sol, cost, single
+
+
+def parallel_phase(work, verified4):
+    """Phase 16: matching, BA and the mapper over a mesh of several
+    shards.  Returns the topstats launches of its sharded matching."""
+    import torch.distributed as dist
+
+    from xrsfm_tpu_torch.base.colmap_bridge import map_to_colmap
+    from xrsfm_tpu_torch.feature import matching as FM
+    from xrsfm_tpu_torch.mapper import IncrementalMapper, MapperOptions
+    from xrsfm_tpu_torch.ops import matching as TM
+    from xrsfm_tpu_torch.optim import ba
+    from xrsfm_tpu_torch.parallel import dist_ba, mesh as PM
+    from xrsfm_tpu_torch.pipelines import run_reconstruction as RR
+    from xrsfm_tpu_torch.utils import camera as Cam
+    from xrsfm_tpu_torch.utils import io_features as IOF
+    from xrsfm_tpu_torch.utils import synth
+
+    t_phase = time.perf_counter()
+    n_gpu = torch.cuda.device_count()
+    cuda0 = torch.device("cuda", 0)
+    mesh4 = PM.Mesh([cuda0] * SHARDS)
+    layouts = {f"{SHARDS} shards on cuda:0": mesh4}
+    if n_gpu >= 2:
+        layouts[f"one shard on each of {n_gpu} cards"] = PM.make_mesh(
+            n_gpu, "cuda")
+    print(f"[phase 16] layouts: {', '.join(layouts)}", flush=True)
+
+    # 1. sharded matching on phase 4's features and pairs
+    feats = IOF.read_features(os.path.join(work, "out", "ftr.bin"))
+    pairs = FM.sequential_pairs(len(feats), FM.MatchingOptions())
+    launches = 0
+    for name, mesh in layouts.items():
+        TM.reset_launch_counts()
+        t0 = time.perf_counter()
+        got = FM.match_and_verify_pairs(feats, pairs, verbose=False,
+                                        mesh=mesh)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        by_dev = dict(TM.LAUNCHES_BY_DEVICE)
+        launches += TM.LAUNCHES["topstats_cuda"]
+        same = _pair_bits(got) == _pair_bits(verified4)
+        print(f"[phase 16] match_and_verify_pairs on {name}: {len(pairs)} "
+              f"pairs, {len(got)} verified in {wall:.3f} s, bit-equal to "
+              f"phase 4: {same}; topstats launches by device {by_dev}, "
+              f"plain {TM.LAUNCHES['topstats_plain']}", flush=True)
+        if not same:
+            fail(f"sharded matching on {name} differs from phase 4's")
+        if TM.LAUNCHES["topstats_plain"] or any(
+                by_dev.get(str(d), 0) <= 0 for d in mesh.devices):
+            fail(f"sharded matching on {name}: launches {by_dev}")
+
+    # 2. sharded BA against single-device BA
+    d = synth.ba_problem(**BA_SIZES["small"])
+    sol, _, _ = dist_ba_compare(mesh4, "140k", d, 5)
+    di = synth.ba_problem(**BA_SIZES["small"])
+    n_cams = len(di["cam_q"])
+    free, tie = Cam.intri_free_mask(Cam.PINHOLE)
+    f_true = float(di["cam_intri"][0, 0])
+    di["cam_intri"][:, :2] *= 1.03
+    di.update(cam_kam=np.zeros(n_cams, np.int64),
+              fix_intri=np.tile(~free[None], (n_cams, 1)),
+              tie_f=np.full(n_cams, bool(tie)))
+    sol_i, _, single_i = dist_ba_compare(mesh4, "14-dof", di, 10,
+                                         huber_px=32.0, intri=True)
+    f_d, f_s = float(sol_i.cam_intri[0, 0]), float(single_i.cam_intri[0, 0])
+    print(f"[phase 16] focal {f_true * 1.03:.3f} -> sharded {f_d:.3f}, "
+          f"single-device {f_s:.3f} (true {f_true:.3f}); sharded against "
+          f"single-device {100 * abs(f_d - f_s) / f_s:.5f}%", flush=True)
+    if not abs(f_d - f_s) / f_s < 0.01:
+        fail(f"distributed intrinsics BA: focal {f_d} against {f_s}")
+    for name, mesh in layouts.items():
+        if mesh is not mesh4:
+            dist_ba_compare(mesh, f"140k on {name}", d, 5)
+    dl = synth.ba_problem(**BA_SIZES["large"])
+    dist_ba_compare(mesh4, "1.1M", dl, 12)
+    del dl
+
+    # 3. determinism: a second sharded solve, then a one-rank NCCL group
+    prob = ba.BAProblem.from_numpy("cuda", **d)
+    again, _ = dist_ba.solve_distributed(mesh4, prob, max_iters=5)
+    store = os.path.join(work, "nccl_store")
+    PM.initialize_distributed(f"file://{store}", 1, 0, device=cuda0,
+                              timeout_s=120.0)
+    try:
+        pod = PM.make_pod_mesh([cuda0] * SHARDS)
+        nccl, _ = dist_ba.solve_distributed(pod, prob, max_iters=5,
+                                            axis=("dcn", "ici"))
+        backend = dist.get_backend()
+    finally:
+        dist.destroy_process_group()
+    sums = [_state_checksum(p) for p in (sol, again, nccl)]
+    print(f"[phase 16] pytree_checksum of the 140k solve: {sums[0]}, again "
+          f"{sums[1]}, one-rank {backend} group over the pod mesh "
+          f"{pod.shape}: {sums[2]}", flush=True)
+    if len(set(sums)) != 1:
+        fail(f"distributed BA checksums differ: {sums}")
+
+    # 4. the mapper on the 4-shard mesh, phase 7's gates
+    bins = os.path.join(work, "out")
+    cam = os.path.join(work, "camera.txt")
+    gt = read_gt(os.path.join(work, "gt_poses.txt"))
+
+    def mapper_gates(tag, model):
+        counts = solver_counts()[1]
+        check_no_cpu_solve(tag, counts)
+        ims, pts, errs = read_model(model)
+        ate_pct, _ = ate_percent(ims, gt)
+        mean_err = float(np.mean(errs)) if len(errs) else float("inf")
+        print(f"[phase 16] {tag}: {len(ims)}/{N_IMAGES} registered, "
+              f"{len(pts)} points, ATE {ate_pct:.5f}% (limit "
+              f"{MAX_ATE_PCT:.5f}%), mean reprojection error {mean_err:.4f} "
+              f"px; BA solves {counts['ba']['solves_cuda']}, distributed "
+              f"{counts['ba']['dist_solves_cuda']} on CUDA", flush=True)
+        if len(ims) != N_IMAGES or not ate_pct <= MAX_ATE_PCT \
+                or not mean_err < MAX_REPROJ_PX \
+                or counts["ba"]["dist_solves_cuda"] < 1:
+            fail(f"{tag}: the mapper on a mesh failed its gates")
+
+    reset_solver_counts()
+    t0 = time.perf_counter()
+    m = RR.build_map(bins, cam)
+    if not IncrementalMapper(MapperOptions(verbose=False), device="cuda",
+                             mesh=mesh4).reconstruct(m):
+        fail("mapper on a mesh: initialization failed")
+    torch.cuda.synchronize()
+    model = os.path.join(work, "mesh_model")
+    map_to_colmap(m, model)
+    mapper_gates(f"IncrementalMapper(mesh={SHARDS} shards), "
+                 f"{time.perf_counter() - t0:.3f} s", model)
+
+    # 5. no fallback to fewer devices
+    if n_gpu < 2:
+        try:
+            RR.main(bins, cam, os.path.join(work, "n2_model"), n_devices=2,
+                    device="cuda")
+        except RuntimeError as e:
+            print(f"[phase 16] run_reconstruction(n_devices=2) on {n_gpu} "
+                  f"card raised RuntimeError: {e}", flush=True)
+        else:
+            fail("run_reconstruction(n_devices=2) ran on one card")
+    else:
+        reset_solver_counts()
+        model2 = os.path.join(work, "n2_model")
+        RR.main(bins, cam, model2, n_devices=2, device="cuda")
+        mapper_gates("run_reconstruction(n_devices=2)", model2)
+    print(f"[phase 16] gates passed in {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke run needs a GPU")
@@ -1268,14 +1496,16 @@ def main():
     print(f"[phase 3] topstats B={PHASE3_RAGGED[0]} N={PHASE3_RAGGED[1]} "
           f"M={PHASE3_RAGGED[2]} (ragged): bit-equal to plain", flush=True)
 
-    # phases 4-15: the matching stage, BA, the reconstruction stage, the
+    # phases 4-16: the matching stage, BA, the reconstruction stage, the
     # circuit with loop closure, the correction path, triangulation, the
-    # unordered regime, ORB, snapshot/resume, metric scale, the CLI
+    # unordered regime, ORB, snapshot/resume, metric scale, the CLI,
+    # several shards
     scratch = os.path.dirname(build.BUILD_DIR)  # build/, git-ignored
     os.makedirs(scratch, exist_ok=True)
     work = tempfile.mkdtemp(prefix="chip_smoke_", dir=scratch)
     try:
-        launches, counts, poses, K = match_phases(TM, RM, IOF, synth, work)
+        launches, counts, poses, K, verified4 = match_phases(
+            TM, RM, IOF, synth, work)
         ba_phase()
         model, n_points = recon_phase(work)
         kitti_phase(work)
@@ -1287,6 +1517,7 @@ def main():
         resume_phase(work)
         scale_phase(work, model)
         cli_phase(work, model)
+        launches16 = parallel_phase(work, verified4)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -1304,7 +1535,11 @@ def main():
           f"launch, {k11['queued_ms']:.4f} ms queued, bound "
           f"{k11['bound_ms']:.5f} ms by {k11['bound_by']}, plain "
           f"{k11['plain_ms']:.4f} ms", flush=True)
-    print(f"[summary] kernel summary below: launches of phases 4 and 11; "
+    print(f"[summary] topstats launches: phase 4 "
+          f"{launches['topstats_cuda']}, phase 11 "
+          f"{launches11['topstats_cuda']}, phase 16 (sharded) {launches16}",
+          flush=True)
+    print(f"[summary] kernel summary below: launches of phases 4, 11 and 16; "
           f"times and bound at phase 4's chunk shape B=16 N=M={k_main}",
           flush=True)
     print(json.dumps({"kernels": [{
@@ -1312,7 +1547,8 @@ def main():
         "route": "cuda",
         "source": "xrsfm_tpu_torch/csrc/topstats.cu",
         "replaces": "xrsfm_tpu/ops/matching.py:33",
-        "launches": launches["topstats_cuda"] + launches11["topstats_cuda"],
+        "launches": (launches["topstats_cuda"] + launches11["topstats_cuda"]
+                     + launches16),
         "max_abs_err": err,
         "ms": k["ms"],
         "queued_ms": k["queued_ms"],

@@ -100,9 +100,10 @@ def test_robust_cost_and_normal_blocks_match_jax():
     assert float(c_t) == pytest.approx(float(c_j), rel=1e-5)
     np.testing.assert_allclose(w_t.numpy(), np.asarray(w_j), atol=1e-5)
     assert (w_t.numpy() == 0).sum() >= 5
-    got = TB._build_normal_blocks(pt, r, Jc, Jp, w_t)
+    U, V, (W,), bc, bp = TB._build_normal_blocks([pt], [r], [Jc], [Jp], [w_t])
     exp = jax.jit(JB._build_normal_blocks)(pj, rj, Jcj, Jpj, w_j)
-    for name, a, b in zip(("U", "V", "W", "bc", "bp"), got, exp):
+    for name, a, b in zip(("U", "V", "W", "bc", "bp"), (U, V, W, bc, bp),
+                          exp):
         b = np.asarray(b)
         np.testing.assert_allclose(a.numpy(), b, atol=1e-4 * np.abs(b).max(),
                                    rtol=0, err_msg=name)

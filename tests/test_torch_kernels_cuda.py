@@ -4,7 +4,10 @@ the port's solvers (bundle adjustment with and without intrinsics, the
 scale pose graph, rotation and translation averaging), VLAD retrieval, ORB
 extraction, Hamming matching and the tags' joint scale refinement on the
 card against the same work on the CPU, and the float32 inverse of the
-intrinsics solve's 8x8 Jacobi blocks against float64.
+intrinsics solve's 8x8 Jacobi blocks against float64; several shards
+(parallel/): the kernel on a second card where there is one, sharded
+matching bit-equal to one device, and a one-rank NCCL group's BA checksum
+equal to one process's.
 
 Needs a CUDA device and nvcc; skips elsewhere.  On a machine with a GPU
 (and no JAX, which the repo's conftest imports), run:
@@ -378,12 +381,12 @@ def test_intrinsic_jacobi_blocks_float32_inverse_on_cuda(cuda_device):
         p = ba.BAProblem.from_numpy(dev, **d)
         r, z, Jc, Jp = ba._residuals_and_jacobians(p, with_intri=True)
         _, w = ba._robust_cost_and_weight(r, z, p.obs_w, 4.0)
-        U, V, W, _, _ = ba._build_normal_blocks(p, r, Jc, Jp, w)
+        U, V, W, _, _ = ba._build_normal_blocks([p], [r], [Jc], [Jp], [w])
         eye14 = torch.eye(14, device=U.device)
         eye3 = torch.eye(3, device=U.device)
         Ud = U + 1e-4 * (U * eye14) + 1e-8 * eye14
         Vinv = ba._inv3x3(V + 1e-4 * (V * eye3) + 1e-8 * eye3)
-        _, Si = ba._jacobi_blocks(p, Ud, Vinv, W,
+        _, Si = ba._jacobi_blocks([p], Ud, Vinv, W,
                                   ba._TiedSpace(p.cam_kam, len(p.cam_q)))
         eye8 = torch.eye(8, device=U.device).expand(len(Si), 8, 8)
         inv64 = torch.linalg.solve(Si.double(), eye8.double())
@@ -534,3 +537,87 @@ def test_joint_refine_scale_on_cuda_matches_cpu(cuda_device):
                                             0.113, device=dev))
     a, b = scales
     assert abs(a - b) / a < 1e-4 and abs(a - 2.5) / 2.5 < 5e-3
+
+
+def test_topstats_kernel_on_second_card(cuda_device):
+    """On cuda:1 (where there is one) the kernel runs under that card's
+    device guard and stream, interleaved with launches on cuda:0, bit-equal
+    to the plain version, and its launches count under cuda:1."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    devs = [torch.device("cuda", 0), torch.device("cuda", 1)]
+    cases = [_case(d, 40 + k, 3, 300, 700) for k, d in enumerate(devs)]
+    TM.reset_launch_counts()
+    got = [TM.topstats_cuda(*c) for c in cases + cases]
+    for d in devs:
+        torch.cuda.synchronize(d)
+    assert TM.LAUNCHES_BY_DEVICE == {"cuda:0": 2, "cuda:1": 2}
+    for g, c in zip(got, cases + cases):
+        for a, b in zip(g, TM.topstats_reference(*c)):
+            assert a.device == c[0].device
+            assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def test_sharded_matching_on_cuda_bit_equal(cuda_device, tmp_path):
+    """match_and_verify_pairs over 4 shards of the card (and over every
+    card, where there are several) verifies the pairs of one device with
+    the same matches, F and inlier masks, bit for bit, through the kernel
+    on every shard device."""
+    from xrsfm_tpu_torch.feature import matching as FM
+    from xrsfm_tpu_torch.parallel.mesh import Mesh, make_mesh
+    from xrsfm_tpu_torch.utils import io_features as IOF
+
+    synth.write_unordered_workspace(str(tmp_path), "unordered", 16, 1)
+    feats = IOF.read_features(str(tmp_path / "ftr.bin"))
+    pairs = FM.sequential_pairs(len(feats), FM.MatchingOptions())
+    one = FM.match_and_verify_pairs(feats, pairs, verbose=False,
+                                    device=cuda_device)
+    meshes = [Mesh([torch.device("cuda", 0)] * 4)]
+    if torch.cuda.device_count() >= 2:
+        meshes.append(make_mesh(torch.cuda.device_count(), "cuda"))
+
+    def bits(ps):
+        return [(p.id1, p.id2, p.matches.tobytes(), p.E.tobytes(),
+                 p.inlier_mask.tobytes()) for p in ps]
+
+    assert len(one) > 30
+    for mesh in meshes:
+        TM.reset_launch_counts()
+        got = FM.match_and_verify_pairs(feats, pairs, verbose=False,
+                                        mesh=mesh)
+        assert bits(got) == bits(one)
+        assert TM.LAUNCHES["topstats_plain"] == 0
+        assert all(TM.LAUNCHES_BY_DEVICE.get(str(d), 0) > 0
+                   for d in mesh.devices)
+
+
+def test_one_rank_nccl_checksum_equals_one_process(cuda_device, tmp_path):
+    """A one-rank NCCL group (file store) over the pod mesh (dcn 1, ici 4)
+    gathers the shards' partials through NCCL and solves to the bits of
+    the single-process 4-shard mesh."""
+    import torch.distributed as dist
+
+    from xrsfm_tpu_torch.optim import ba
+    from xrsfm_tpu_torch.parallel import dist_ba, mesh as PM
+    from xrsfm_tpu_torch.parallel.checksum import pytree_checksum
+
+    dev = torch.device("cuda", 0)
+    d = synth.ba_problem(n_cams=30, n_pts=2000, seed=4)
+    prob = ba.BAProblem.from_numpy(dev, **d)
+
+    def ck(p):
+        return pytree_checksum({"q": p.cam_q, "t": p.cam_t, "x": p.points})
+
+    one, cost1 = dist_ba.solve_distributed(PM.Mesh([dev] * 4), prob,
+                                           max_iters=5)
+    assert PM.initialize_distributed(f"file://{tmp_path / 'store'}", 1, 0,
+                                     device=dev, timeout_s=120.0) == (1, 0)
+    try:
+        pod = PM.make_pod_mesh([dev] * 4)
+        assert dist.get_backend() == "nccl" and pod.shape == {"dcn": 1,
+                                                              "ici": 4}
+        nccl, cost = dist_ba.solve_distributed(pod, prob, max_iters=5,
+                                               axis=("dcn", "ici"))
+    finally:
+        dist.destroy_process_group()
+    assert cost == cost1 and ck(nccl) == ck(one)

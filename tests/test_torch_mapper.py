@@ -3,7 +3,7 @@ pipelines.run_reconstruction with its CLI twin) against the JAX package's,
 on the CPU: map construction and state carried over, a reconstruction of
 tests/synthetic.make_scene correspondences, the stage's entry points on
 bins the port's own matching stage wrote, the loop-closure options, and
-the options the port does not have."""
+the options that once raised (several devices among them)."""
 
 import dataclasses
 import os
@@ -235,22 +235,29 @@ def test_cuda_device_raises_without_a_gpu(tmp_path):
 @pytest.mark.parametrize("change,item", [
     # refine_intrinsics runs since intrinsics BA was ported
     # (tests/test_torch_unordered.py), snapshot_every since snapshots were
-    # (tests/test_torch_snapshot.py); the case keeps its id
+    # (tests/test_torch_snapshot.py), n_devices since parallel/ was
+    # (tests/test_torch_parallel.py); the case keeps its id
     pytest.param(dict(n_devices=2), "parallel/", id="change1-item 5"),
 ])
-def test_unported_options_raise(tmp_path, change, item):
-    """Every option outside the ported configuration raises
-    NotImplementedError naming its ROADMAP.md item, from the mapper and
-    from the entry point."""
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md.*{item}"):
-        IncrementalMapper(dataclasses.replace(MapperOptions(), **change),
-                          device="cpu")
-    kw = {k: v for k, v in change.items()
-          if k in ("snapshot_every", "n_devices")}
-    if kw:
-        with pytest.raises(NotImplementedError, match=item):
-            TRR.main(str(tmp_path), "", str(tmp_path / "o"), device="cpu",
-                     **kw)
+def test_unported_options_raise(bins, change, item):
+    """The last option that raised NotImplementedError, n_devices = 2, now
+    runs on a mesh of 2 CPU shards, from the mapper and from the entry
+    point (6/6 registered, every global solve sharded), and raises
+    RuntimeError on CUDA with fewer GPUs than asked (on a host without
+    CUDA, any)."""
+    mapper = IncrementalMapper(dataclasses.replace(MapperOptions(), **change),
+                               device="cpu")
+    assert mapper.mesh.size == 2 and mapper.mesh.home.type == "cpu"
+    TB.reset_counts()
+    out = os.path.join(bins, "model_mesh")
+    m = TRR.main(os.path.join(bins, "bins"), os.path.join(bins, "camera.txt"),
+                 out, device="cpu", **change)
+    assert m is not None and int(np.count_nonzero(m.registered)) == 6
+    assert TB.COUNTS["dist_solves_cpu"] > 0
+    _check_model(bins, out)
+    with pytest.raises(RuntimeError):
+        IncrementalMapper(MapperOptions(
+            n_devices=torch.cuda.device_count() + 1), device="cuda")
 
 
 @pytest.mark.parametrize("option", ["correct_pose", "global_polish",
@@ -282,17 +289,29 @@ def test_loop_options_run_on_cpu(option):
 
 
 def test_unported_entry_options_raise(tmp_path):
-    """Several devices, the one part of the JAX package not ported, raise
-    NotImplementedError naming ROADMAP.md's parallel/ item (resume, which
-    raised too, runs since snapshots were ported)."""
-    m = build_map(TMap, make_scene(n_cams=3, n_pts=20, seed=1))
-    with pytest.raises(NotImplementedError, match="item 1: parallel/"):
-        ba_glue.run_ba(m, [0, 1], mesh=object(), device="cpu")
+    """The mesh arguments that raised NotImplementedError now run:
+    run_ba(mesh=) on a make_scene reconstruction solves on 4 CPU shards to
+    within 1% of the single-device cost, and rec_1dsfm with more CUDA
+    devices than exist raises RuntimeError (no fallback)."""
+    from xrsfm_tpu_torch.parallel.mesh import make_mesh
     from xrsfm_tpu_torch.pipelines import rec_1dsfm
 
-    with pytest.raises(NotImplementedError, match="item 1: parallel/"):
-        rec_1dsfm.main(str(tmp_path), "", str(tmp_path / "o"), n_devices=2,
-                       device="cpu")
+    s = make_scene(n_cams=6, n_pts=150, seed=20, noise=0.0)
+    m = build_map(TMap, s)
+    assert IncrementalMapper(MapperOptions(verbose=False),
+                             device="cpu").reconstruct(m)
+    frames = list(np.nonzero(m.registered)[0])
+    m1 = TMap.from_state(m)
+    TB.reset_counts()
+    res4 = ba_glue.run_ba(m, frames, mesh=make_mesh(4, "cpu"), device="cpu")
+    res1 = ba_glue.run_ba(m1, frames, device="cpu")
+    assert TB.COUNTS["dist_solves_cpu"] == 1 and TB.COUNTS["solves_cpu"] == 1
+    assert abs(res4.final_cost - res1.final_cost) <= 0.01 * res1.final_cost
+    assert res4.iters >= 1 and res4.n_obs == res1.n_obs > 0
+    assert ate_rmse(_centers(m1.q, m1.t), _centers(m.q, m.t)) < 1e-3
+    with pytest.raises(RuntimeError):
+        rec_1dsfm.main(str(tmp_path), "", str(tmp_path / "o"),
+                       n_devices=torch.cuda.device_count() + 1, device="cuda")
 
 
 def test_mapper_options_convert_from_jax():

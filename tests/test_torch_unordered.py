@@ -136,15 +136,19 @@ def test_rec_1dsfm_reconstructs_ring(ring, tmp_path):
 
 
 def test_rec_1dsfm_entry_points_refuse(tmp_path):
-    """The CLI twin without a GPU is an error, not a CPU run; several
-    devices are not ported and name their ROADMAP.md item."""
+    """The CLI twin without a GPU is an error, not a CPU run, with or
+    without --n_devices; more CUDA devices than exist raise RuntimeError
+    rather than running on fewer."""
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             TCLI.main(["rec_1dsfm", str(tmp_path), "x.txt",
                        str(tmp_path / "o")])
-    with pytest.raises(NotImplementedError, match="item 1: parallel/"):
-        rec_1dsfm.main(str(tmp_path), "", str(tmp_path / "o"), n_devices=2,
-                       device="cpu")
+        with pytest.raises(RuntimeError, match="CUDA"):
+            TCLI.main(["rec_1dsfm", str(tmp_path), "x.txt",
+                       str(tmp_path / "o"), "--n_devices", "2"])
+    with pytest.raises(RuntimeError):
+        rec_1dsfm.main(str(tmp_path), "", str(tmp_path / "o"),
+                       n_devices=torch.cuda.device_count() + 1, device="cuda")
 
 
 _JAX_SCRIPT = r"""

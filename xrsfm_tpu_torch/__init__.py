@@ -13,5 +13,6 @@ JAX package's default configuration (5-point initialization, batched P3P
 registration, triangulation, Schur-complement LM bundle adjustment ->
 ``cameras.bin`` / ``images.bin`` / ``points3D.bin``), entered through
 ``pipelines.run_reconstruction.main`` or ``python -m xrsfm_tpu_torch.cli
-run_reconstruction``.
+run_reconstruction``.  Every other module of the JAX package has its twin
+too, ``parallel`` (several devices and processes) among them.
 """

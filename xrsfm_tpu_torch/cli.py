@@ -1,18 +1,20 @@
 """Command-line entry points of the port.
 
 Usage: python -m xrsfm_tpu_torch.cli run_matching <images_dir>
-       <retrieval_path> <matching_type> <output_dir> [--device cuda]
+       <retrieval_path> <matching_type> <output_dir> [--n_devices N]
+       [--device cuda]
        python -m xrsfm_tpu_torch.cli retrieve <images_dir> <output_dir>
        [--topk 25] [--num_words 64] [--device cuda]
        python -m xrsfm_tpu_torch.cli run_reconstruction <bin_dir>
        <camera_txt> <output_dir> [--init_id1 N --init_id2 N]
-       [--correct_pose] [--snapshot_every N] [--resume] [--device cuda]
+       [--correct_pose] [--snapshot_every N] [--resume] [--n_devices N]
+       [--device cuda]
        python -m xrsfm_tpu_torch.cli run_triangulation <bin_dir>
        <model_dir> <output_dir> [--device cuda]
        python -m xrsfm_tpu_torch.cli rec_kitti <bin_dir> <seq_name>
        <output_dir> [--timestamp_path times.txt] [--device cuda]
        python -m xrsfm_tpu_torch.cli rec_1dsfm <bin_dir> <camera_info>
-       <output_dir> [--device cuda]
+       <output_dir> [--n_devices N] [--device cuda]
        python -m xrsfm_tpu_torch.cli estimate_scale <images_dir>
        <model_dir> [--tag_length 0.113] [--device cuda]
        python -m xrsfm_tpu_torch.cli unpack_collect_data <input_path>
@@ -27,6 +29,8 @@ takes --config, a JSON file with the reference binaries' keys
 (utils/config; positional arguments win over it), and --profile_dir, a
 directory for a torch.profiler trace of the command (utils/profiling).
 --device names the device explicitly; "cuda" without a GPU is an error.
+--n_devices N > 1 shards matching or global BA over the first N GPUs
+(parallel/), and is an error when fewer exist.
 """
 
 from __future__ import annotations
@@ -57,6 +61,8 @@ def _parser():
     p.add_argument("matching_type", nargs="?",
                    choices=["sequential", "retrieval", "covisibility"])
     p.add_argument("output_dir", nargs="?")
+    p.add_argument("--n_devices", type=int, default=1,
+                   help="shard descriptor matching over this many devices")
 
     p = add("retrieve", "retrieval.txt from images (VLAD)")
     p.add_argument("images_dir", nargs="?")
@@ -78,6 +84,9 @@ def _parser():
                         "<output_dir>/snapshot.npz every N registrations")
     p.add_argument("--resume", action="store_true",
                    help="resume from <output_dir>/snapshot.npz if present")
+    p.add_argument("--n_devices", type=int, default=1,
+                   help="shard global BA over this many devices "
+                        "(parallel/dist_ba; 1 = single-device)")
 
     p = add("run_triangulation", "triangulate known poses")
     p.add_argument("bin_dir", nargs="?",
@@ -100,6 +109,9 @@ def _parser():
     p.add_argument("camera_info_path", nargs="?",
                    help="per-image SIMPLE_RADIAL camera_info.txt")
     p.add_argument("output_dir", nargs="?")
+    p.add_argument("--n_devices", type=int, default=1,
+                   help="shard global BA (incl. intrinsics-refining GBA) "
+                        "over this many devices")
 
     p = add("estimate_scale", "AprilTag metric scale")
     p.add_argument("images_dir", nargs="?")
@@ -136,7 +148,7 @@ def _dispatch(args):
 
         return M.main(args.images_dir, args.retrieval_path,
                       args.matching_type, args.output_dir,
-                      device=args.device) or True
+                      n_devices=args.n_devices, device=args.device) or True
     if args.cmd == "retrieve":
         from .pipelines import retrieve as RV
 
@@ -150,7 +162,8 @@ def _dispatch(args):
                       args.init_id1, args.init_id2,
                       correct_pose=args.correct_pose,
                       snapshot_every=args.snapshot_every,
-                      resume=args.resume, device=args.device)
+                      resume=args.resume, n_devices=args.n_devices,
+                      device=args.device)
     if args.cmd == "run_triangulation":
         from .pipelines import run_triangulation as T
 
@@ -166,7 +179,7 @@ def _dispatch(args):
         from .pipelines import rec_1dsfm as U
 
         return U.main(args.bin_dir, args.camera_info_path, args.output_dir,
-                      device=args.device)
+                      n_devices=args.n_devices, device=args.device)
     if args.cmd == "estimate_scale":
         from .pipelines import estimate_scale as S
 

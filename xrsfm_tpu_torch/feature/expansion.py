@@ -315,8 +315,10 @@ def covisibility_matching(
     verbose: bool = True,
     stats=None,
     device="cuda",
+    mesh=None,
 ) -> List[FramePairData]:
-    """Full EC-SfM covisibility matching on `device` (reference:
+    """Full EC-SfM covisibility matching on `device`, or sharded over the
+    devices of `mesh` (feature/matching.match_and_verify_pairs; reference:
     run_matching.cc "covisibility" branch and ExpansionAndMatching).
 
     stats (optional dict) receives pairs_proposed (the seeds and every
@@ -333,7 +335,8 @@ def covisibility_matching(
     else:
         t0 = time.time()
         verified = fmatch.match_and_verify_pairs(
-            features, seed_pairs, opts, verbose=verbose, device=device)
+            features, seed_pairs, opts, verbose=verbose, device=device,
+            mesh=mesh)
         match_s += time.time() - t0
         if init_pairs_path:
             write_frame_pairs(init_pairs_path, verified)
@@ -369,7 +372,8 @@ def covisibility_matching(
         n_proposed += len(cands)
         t0 = time.time()
         new_pairs = fmatch.match_and_verify_pairs(
-            features, cands, opts, verbose=verbose, device=device)
+            features, cands, opts, verbose=verbose, device=device,
+            mesh=mesh)
         match_s += time.time() - t0
         t0 = time.time()
         matched.update(cands)

@@ -7,11 +7,14 @@ src/run_matching.cc pair strategies — sequential :125-151, retrieval
 src/geometry/epipolar_geometry.hpp:10-27)
 
 Descriptors of all frames stay on the device in one padded pool.  Pairs
-are matched in 16-pair chunks (one `topstats` launch each) and verified in
-16-pair chunks grouped by match-count bucket.  Each chunk is dispatched
-before the previous chunk's results are read: its outputs are copied to
-the host asynchronously behind a CUDA event, so the host's bookkeeping of
-chunk k overlaps the device's work on chunk k+1.
+are matched in 16-pair groups (one `topstats` launch each) and verified in
+16-pair groups sorted by match-count bucket.  Over a device mesh a chunk
+holds one group per shard, each matched and verified on its shard's
+device (a pool on every device); on one device a chunk is one group.
+Each chunk is dispatched before the previous chunk's results are read:
+its outputs are copied to the host asynchronously behind a CUDA event, so
+the host's bookkeeping of chunk k overlaps the device's work on chunk
+k+1.
 """
 
 from __future__ import annotations
@@ -125,19 +128,26 @@ def retrieval_pairs(
 def _to_host(tensors):
     """Start copying device tensors to the host; returns (host tensors,
     event to wait on, or None when they already lie on the host)."""
-    if tensors[0].device.type != "cuda":
+    dev = tensors[0].device
+    if dev.type != "cuda":
         return tensors, None
     host = tuple(t.to("cpu", non_blocking=True) for t in tensors)
     ev = torch.cuda.Event()
-    ev.record()
+    ev.record(torch.cuda.current_stream(dev))
     return host, ev
 
 
-def _wait_host(fut):
-    host, ev = fut
-    if ev is not None:
-        ev.synchronize()
-    return [t.numpy() for t in host]
+def _wait_host(futs):
+    """numpy arrays of the groups' outputs, concatenated in group order."""
+    parts = []
+    for host, ev in futs:
+        if ev is not None:
+            ev.synchronize()
+        parts.append([t.numpy() for t in host])
+    return [np.concatenate(a) for a in zip(*parts)]
+
+
+GROUP = 16  # pairs a launch
 
 
 def match_and_verify_pairs(
@@ -146,11 +156,18 @@ def match_and_verify_pairs(
     opts: MatchingOptions = MatchingOptions(),
     verbose: bool = True,
     device="cuda",
+    mesh=None,
 ) -> List[FramePairData]:
     """Full matching stage over candidate pairs on `device`.  Returns the
     verified pairs with inlier masks (pairs failing the inlier rule are
-    dropped)."""
-    dev = resolve_device(device)
+    dropped).
+
+    mesh (parallel.mesh.Mesh, optional; its devices replace `device`):
+    chunks of 16 pairs a shard, matching and verification both split over
+    the shards.  The 16-pair groups and each pair's RANSAC generator are
+    those of one device, so on one device type the result is the
+    single-device run's bit for bit."""
+    devs = list(mesh.devices) if mesh is not None else [resolve_device(device)]
     out: List[FramePairData] = []
 
     # device-resident descriptor pool, padded per frame to a shared bucket
@@ -165,26 +182,32 @@ def match_and_verify_pairs(
         descs[i, :n] = f.descriptors
         masks[i, :n] = True
         kps[i, :n] = f.keypoints[:, :2]
-    descs_d = torch.from_numpy(descs).to(dev)
-    masks_d = torch.from_numpy(masks).to(dev)
+    pools = {}
+    for d in devs:
+        if d not in pools:
+            pools[d] = (torch.from_numpy(descs).to(d),
+                        torch.from_numpy(masks).to(d))
 
     # pass 1: descriptor matching, pairs batched into fixed-size chunks
     cand = []  # (i, j, matches [M,2], dists [M])
     mm = min(K, 4096)
-    B = 16
+    B = GROUP * len(devs)
 
     def _dispatch_match(s):
         grp = list(pair_ids[s: s + B])
         pad = B - len(grp)
-        idx = np.asarray(grp + [grp[-1]] * pad, np.int64)  # keep B fixed
-        res = _match_chunk_resident(
-            descs_d, masks_d, torch.from_numpy(idx).to(dev),
-            opts.dist_th, opts.ratio_th, mm,
-        )
-        return grp, _to_host(res)
+        idx = np.asarray(grp + [grp[-1]] * pad, np.int64)  # keep groups full
+        futs = []
+        for k, d in enumerate(devs[:-(-len(grp) // GROUP)]):
+            descs_d, masks_d = pools[d]
+            futs.append(_to_host(_match_chunk_resident(
+                descs_d, masks_d,
+                torch.from_numpy(idx[k * GROUP:(k + 1) * GROUP]).to(d),
+                opts.dist_th, opts.ratio_th, mm)))
+        return grp, futs
 
-    def _harvest_match(grp, fut):
-        m_np, c_np, d_np = _wait_host(fut)
+    def _harvest_match(grp, futs):
+        m_np, c_np, d_np = _wait_host(futs)
         for k, (i, j) in enumerate(grp):
             n_m = int(c_np[k])
             if n_m < max(8, opts.min_inliers):
@@ -213,7 +236,7 @@ def match_and_verify_pairs(
     for k, (i, j, mnp, d) in enumerate(cand):
         by_bucket.setdefault(bucket(len(mnp)), []).append(k)
     th = float(np.float32(opts.f_ransac_px**2))
-    CHUNK = 16
+    CHUNK = GROUP * len(devs)
 
     def _dispatch_verify(b, grp):
         x1 = np.zeros((CHUNK, b, 2), np.float32)
@@ -227,15 +250,18 @@ def match_and_verify_pairs(
             x2[g, :n_m] = kps[j][mnp[:, 1]]
             vm[g, :n_m] = True
             seeds[g] = pair_seed(i, j)
-        gens = [torch.Generator(device=dev).manual_seed(s) for s in seeds]
-        res = _fundamental_ransac_batch(
-            torch.from_numpy(x1).to(dev), torch.from_numpy(x2).to(dev),
-            torch.from_numpy(vm).to(dev), th, generators=gens,
-        )
-        return grp, _to_host(res)
+        futs = []
+        for k, d in enumerate(devs[:-(-len(grp) // GROUP)]):
+            sl = slice(k * GROUP, (k + 1) * GROUP)
+            gens = [torch.Generator(device=d).manual_seed(s)
+                    for s in seeds[sl]]
+            futs.append(_to_host(_fundamental_ransac_batch(
+                torch.from_numpy(x1[sl]).to(d), torch.from_numpy(x2[sl]).to(d),
+                torch.from_numpy(vm[sl]).to(d), th, generators=gens)))
+        return grp, futs
 
-    def _harvest_verify(grp, fut):
-        F_b, inl_b, n_inl_b, ok_b = _wait_host(fut)
+    def _harvest_verify(grp, futs):
+        F_b, inl_b, n_inl_b, ok_b = _wait_host(futs)
         for g, k in enumerate(grp):
             i, j, mnp, d = cand[k]
             n_m = len(mnp)

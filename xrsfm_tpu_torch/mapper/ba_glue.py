@@ -3,8 +3,9 @@ xrsfm_tpu/mapper/ba_glue.py; reference: BASolver::GBA/LBA set-up,
 src/optimization/ba_solver.cc:358-638).
 
 Builds an unpadded COO BAProblem on the requested device for a local or
-global solve, and writes the optimized poses and points back in float64
-(and, from an intrinsics-refining solve, the cameras).
+global solve (sharded over a device mesh when one is given), and writes
+the optimized poses and points back in float64 (and, from an
+intrinsics-refining solve, the cameras).
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ import numpy as np
 
 from ..base.map import SfMMap
 from ..optim.ba import BAOptions, BAProblem, solve_ba
+from ..parallel.dist_ba import solve_distributed
 from ..utils import camera as Cam
 from ..utils.io_features import bucket
 
@@ -159,11 +161,12 @@ def run_ba(
     """Build, solve on `device`, write back.  optimize_intrinsics frees the
     camera intrinsics (reference: GBA frees camera_param,
     ba_solver.cc:330-356; LBA pins it :389) and writes the refined
-    cameras back through update_camera, which refreshes kps_norm."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "sharded BA over a device mesh is not ported yet (ROADMAP.md, "
-            "queue 1, item 1: parallel/)")
+    cameras back through update_camera, which refreshes kps_norm.
+
+    mesh (parallel.mesh.Mesh of more than one shard): solve through the
+    observation-sharded LM of parallel/dist_ba instead, pose-only or
+    intrinsics-refining, with its own schedule (as the JAX package passes
+    it only max_iters and huber_px)."""
     gauge = [m.init_id1, m.init_id2] if m.init_id1 >= 0 else []
     t0 = time.perf_counter()
     prob, frames, tracks, n_obs = build_problem(
@@ -178,7 +181,14 @@ def run_ba(
     t0 = time.perf_counter()
     if optimize_intrinsics:
         opts = dataclasses.replace(opts, optimize_intrinsics=True)
-    sol, info = solve_ba(prob, opts)
+    if mesh is not None and mesh.size > 1:
+        stats = {}
+        sol, _ = solve_distributed(
+            mesh, prob, max_iters=opts.max_iters, huber_px=opts.huber_px,
+            stats=stats, optimize_intrinsics=optimize_intrinsics)
+        info = stats
+    else:
+        sol, info = solve_ba(prob, opts)
     q = sol.cam_q.cpu().numpy().astype(np.float64)
     t = sol.cam_t.cpu().numpy().astype(np.float64)
     pts = sol.points.cpu().numpy().astype(np.float64)

@@ -11,8 +11,10 @@ correction (correct_pose, mapper/error_correct) and the trial-gated
 global pose polish (global_polish / rot_avg_polish, optim/global_pose and
 optim/rot_avg, followed by a resurrection round for frames that failed
 against the drifted map), with snapshots every snapshot_every
-registrations (base/snapshot) and resumption from a restored map.  Several
-devices raise NotImplementedError naming their ROADMAP.md item.
+registrations (base/snapshot) and resumption from a restored map.  With
+n_devices > 1 (or a mesh given), the main KGBA and the polish GBA shard
+their observations over a device mesh (parallel/dist_ba); LBA and the
+intrinsics warm-ups stay on one device, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ from ..base.map import SfMMap
 from ..device import resolve_device
 from ..optim import global_pose, rot_avg
 from ..optim.ba import BAOptions
+from ..parallel.mesh import make_mesh
 from ..utils import geometry as G
 
 
@@ -69,7 +72,8 @@ class MapperOptions:
     # register up to this many covisibility-ready frames per outer
     # iteration in one batched pass (1 = sequential, as the reference)
     batch_registration: int = 8
-    n_devices: int = 1  # > 1 not ported
+    # shard global BA over this many devices (parallel/dist_ba)
+    n_devices: int = 1
     init_id1: int = -1
     init_id2: int = -1
     verbose: bool = True
@@ -79,14 +83,6 @@ class MapperOptions:
     snapshot_path: str = ""
     # stop after N successful registrations (0 = unlimited)
     max_registrations: int = 0
-
-
-def check_supported(opts: MapperOptions):
-    """Raise NotImplementedError for an option the port does not have."""
-    if opts.n_devices > 1:
-        raise NotImplementedError(
-            "MapperOptions.n_devices > 1 is not ported yet (ROADMAP.md, "
-            "queue 1, item 1: parallel/)")
 
 
 def polish_backup(m: SfMMap):
@@ -140,10 +136,17 @@ class MapperStats:
 
 
 class IncrementalMapper:
-    def __init__(self, opts: MapperOptions = MapperOptions(), *, device):
-        check_supported(opts)
+    def __init__(self, opts: MapperOptions = MapperOptions(), *, device,
+                 mesh=None):
+        """The global solves run on `mesh` (parallel.mesh.Mesh, e.g.
+        several shards on one device), else on the first opts.n_devices
+        devices of `device`'s type (raises when fewer exist), else on
+        `device` alone."""
         self.opts = opts
         self.device = resolve_device(device)
+        if mesh is None and opts.n_devices > 1:
+            mesh = make_mesh(opts.n_devices, self.device)
+        self.mesh = mesh
         self.stats = MapperStats()
         self._rejections = {}
         self._intri_gba_warm = False
@@ -347,7 +350,7 @@ class IncrementalMapper:
                 gres = KF.kgba(m, BAOptions(max_iters=o.gba_iters, huber_px=4.0),
                                tri_opts=o.tri,
                                optimize_intrinsics=o.refine_intrinsics,
-                               device=dev)
+                               mesh=self.mesh, device=dev)
                 self.stats.time_gba += time.time() - t0
                 num_reg_at_gba = n_reg
                 if gres is not None:
@@ -427,7 +430,7 @@ class IncrementalMapper:
         for r in range(2 if hard else 1):
             pres = ba_glue.run_ba(m, reg_frames, polish,
                                   optimize_intrinsics=o.refine_intrinsics,
-                                  device=self.device)
+                                  mesh=self.mesh, device=self.device)
             if pres is not None:
                 self._log(f"polish GBA {tag} round {r}: cost "
                           f"{pres.initial_cost:.1f} -> {pres.final_cost:.1f}")

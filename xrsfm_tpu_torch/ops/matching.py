@@ -32,13 +32,16 @@ _QUANT = 512.0
 _BIG = 1e9  # > any raw uint8 descriptor dot product (<= 255^2 * 128)
 
 # launches by route; the kernel wrapper and the plain version each count
-# their own, so a run can show which one its matcher went through
+# their own, so a run can show which one its matcher went through; the
+# kernel's launches also by device ("cuda:0": n), for sharded matching
 LAUNCHES = {"topstats_cuda": 0, "topstats_plain": 0}
+LAUNCHES_BY_DEVICE = {}
 
 
 def reset_launch_counts() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    LAUNCHES_BY_DEVICE.clear()
 
 
 def topstats_reference(d1, d2, m1, m2):
@@ -122,6 +125,7 @@ def topstats_cuda(d1, d2, m1, m2):
         # refused cuTensorMapEncodeTiled
         raise RuntimeError(f"topstats kernel launch failed: error {err}")
     LAUNCHES["topstats_cuda"] += 1
+    LAUNCHES_BY_DEVICE[str(dev)] = LAUNCHES_BY_DEVICE.get(str(dev), 0) + 1
     return best, sec, bestj, carg
 
 

@@ -25,7 +25,10 @@ LBA :523-592).
     6x6 pose block per camera and an 8x8 intrinsic block per block.
 
 The LM and PCG loops run on the host: each stop test reads one scalar
-from the device.  Everything is float32; on a GPU the solve runs inside
+from the device.  The normal-block build and the Schur solve take the
+observations as a list of shards and a reduce_fn hook that sums the
+shards' partials (a single shard here; parallel/dist_ba shards over a
+device mesh).  Everything is float32; on a GPU the solve runs inside
 `device.full_precision()` (no TF32).  Left out, as the JAX package's
 TPU-only parts: the ELL / camera-major layout (a TPU gather workaround,
 which the JAX package requires for intrinsics; the algorithm is the same
@@ -46,10 +49,12 @@ from ..utils import geometry as G
 _BAD_RESIDUAL = 12.0  # the reference's negative-depth guard constant
 
 # Solves and iterations since the last reset_counts(), by the device the
-# solve ran on: shows that a run's bundle adjustment ran on the card, and
-# what its host loops cost.
+# solve ran on (dist_solves_*: parallel/dist_ba's, by its home device):
+# shows that a run's bundle adjustment ran on the card, and what its host
+# loops cost.
 COUNTS = {"solves_cuda": 0, "solves_cpu": 0, "intri_solves_cuda": 0,
-          "intri_solves_cpu": 0, "lm_iters": 0, "cg_iters": 0}
+          "intri_solves_cpu": 0, "dist_solves_cuda": 0, "dist_solves_cpu": 0,
+          "lm_iters": 0, "cg_iters": 0}
 
 
 def reset_counts():
@@ -319,9 +324,15 @@ def segment_sum(x, idx, n):
     return out.index_add_(0, idx, x)
 
 
-def _build_normal_blocks(p: BAProblem, r, Jc, Jp, w):
-    """The normal-equation blocks U [C, D, D], V [P, 3, 3], W [O, D, 3],
-    bc [C, D], bp [P, 3], D = 6 (pose) or 14 (pose and intrinsics)."""
+def _single(parts):
+    """The reduction over one shard: its partial itself (the default hook;
+    parallel/dist_ba passes the r5 rule, partials folded in shard order)."""
+    return parts[0]
+
+
+def _shard_normal_blocks(p: BAProblem, r, Jc, Jp, w):
+    """One shard's partial U [C, D, D], V [P, 3, 3], bc [C, D], bp [P, 3]
+    and its coupling blocks W [O, D, 3]."""
     C = p.cam_q.shape[0]
     P = p.points.shape[0]
     Jc, Jp = _masked_jacobians(p, Jc, Jp)
@@ -335,6 +346,21 @@ def _build_normal_blocks(p: BAProblem, r, Jc, Jp, w):
     bp = -segment_sum((wJp.transpose(1, 2) @ r[..., None])[..., 0],
                        p.obs_pt, P)
     return U, V, W, bc, bp
+
+
+def _build_normal_blocks(ps, r, Jc, Jp, w, reduce_fn=_single):
+    """The normal-equation blocks U [C, D, D], V [P, 3, 3], W [O, D, 3],
+    bc [C, D], bp [P, 3], D = 6 (pose) or 14 (pose and intrinsics).
+
+    ps, r, Jc, Jp, w hold one entry per observation shard (a single entry
+    on one device; parallel/dist_ba passes a mesh's shards, each on its
+    device, with the cameras and points replicated).  The twin of the JAX
+    package's reduce_fn on _build_normal_blocks_ell: reduce_fn sums the
+    shards' partial U, V, bc, bp into one tensor on the home device; W
+    stays per shard (a list)."""
+    U, V, W, bc, bp = zip(*(_shard_normal_blocks(*a)
+                            for a in zip(ps, r, Jc, Jp, w)))
+    return reduce_fn(U), reduce_fn(V), list(W), reduce_fn(bc), reduce_fn(bp)
 
 
 class _TiedSpace:
@@ -376,53 +402,70 @@ class _PlainSpace:
         return (a * b).sum()
 
 
-def _jacobi_blocks(p: BAProblem, Ud, Vinv, W, space):
+def _jacobi_blocks(ps, Ud, Vinv, W, space, reduce_fn=_single):
     """The blocks the preconditioner inverts: the diagonal blocks of the
     reduced camera system S; with intrinsics, a 6x6 pose block per camera
     and an 8x8 intrinsic block per intrinsic block (the blocks' cameras
-    summed).  Returns (pose or whole blocks [C, D, D], intrinsic blocks
-    [C, 8, 8] or None)."""
+    summed).  The W Vinv W^T sum crosses shards (reduce_fn); the
+    intrinsic blocks' sum acts on reduced [C, ...] blocks.  Returns (pose
+    or whole blocks [C, D, D], intrinsic blocks [C, 8, 8] or None)."""
     C, D = Ud.shape[0], Ud.shape[-1]
     eyeD = torch.eye(D, dtype=Ud.dtype, device=Ud.device)
-    WVW = (W @ Vinv[p.obs_pt]) @ W.transpose(1, 2)
-    Sdiag = Ud - segment_sum(WVW, p.obs_cam, C) + 1e-7 * eyeD
+    WVW = reduce_fn([
+        segment_sum((Ws @ Vinv.to(Ws.device)[p.obs_pt]) @ Ws.transpose(1, 2),
+                    p.obs_cam, C)
+        for p, Ws in zip(ps, W)])
+    Sdiag = Ud - WVW + 1e-7 * eyeD
     if D == 6:
         return Sdiag, None
     Sd_i = segment_sum(Sdiag[:, 6:, 6:], space.kam, C) + 1e-7 * eyeD[:8, :8]
     return Sdiag[:, :6, :6], Sd_i
 
 
-def _schur_solve(p: BAProblem, U, V, W, bc, bp, lam, cg_iters, cg_tol):
+def _schur_solve(ps, U, V, W, bc, bp, lam, cg_iters, cg_tol,
+                 reduce_fn=_single):
     """Marginalize the points, block-Jacobi PCG on the reduced camera
     system (in the tied space of the intrinsic blocks when the tangent
-    has them), back-substitute."""
+    has them), back-substitute.  ps and W hold one entry per observation
+    shard (see _build_normal_blocks); every sum over observations is
+    summed over shards by reduce_fn: the rhs, the Jacobi blocks, the
+    back-substituted W^T dx, and in each matvec the point sum (before
+    Vinv is applied) and the camera sum.  The tied space's sums act on
+    reduced [C, ...] vectors and cross no shard."""
     C, D = U.shape[0], U.shape[-1]
-    P = p.points.shape[0]
+    P = ps[0].points.shape[0]
     eyeD = torch.eye(D, dtype=U.dtype, device=U.device)
     eye3 = torch.eye(3, dtype=U.dtype, device=U.device)
-    space = _TiedSpace(p.cam_kam, C) if D > 6 else _PlainSpace()
+    space = _TiedSpace(ps[0].cam_kam, C) if D > 6 else _PlainSpace()
 
     # multiplicative LM damping on the block diagonals
     Ud = U + lam * (U * eyeD) + 1e-8 * eyeD
     Vd = V + lam * (V * eye3) + 1e-8 * eye3
     Vinv = _inv3x3(Vd)
-    WT = W.transpose(1, 2)
 
     def mv(M, x):  # batched matrix-vector product
         return (M @ x[..., None])[..., 0]
 
+    def pt_sum(x):  # sum over observations of W^T x_cam, into points
+        return reduce_fn([
+            segment_sum(mv(Ws.transpose(1, 2), x.to(Ws.device)[p.obs_cam]),
+                        p.obs_pt, P)
+            for p, Ws in zip(ps, W)])
+
+    def cam_sum(y):  # sum over observations of W y_pt, into cameras
+        return reduce_fn([
+            segment_sum(mv(Ws, y.to(Ws.device)[p.obs_pt]), p.obs_cam, C)
+            for p, Ws in zip(ps, W)])
+
     def S_matvec(x):  # x [C, D]
-        yp = segment_sum(mv(WT, x[p.obs_cam]), p.obs_pt, P)
-        zp = mv(Vinv, yp)
-        return space.proj(
-            mv(Ud, x) - segment_sum(mv(W, zp[p.obs_pt]), p.obs_cam, C))
+        zp = mv(Vinv, pt_sum(x))
+        return space.proj(mv(Ud, x) - cam_sum(zp))
 
     # rhs = bc - W Vinv bp
-    rhs = space.proj(
-        bc - segment_sum(mv(W, mv(Vinv, bp)[p.obs_pt]), p.obs_cam, C))
+    rhs = space.proj(bc - cam_sum(mv(Vinv, bp)))
 
     # block-Jacobi preconditioner, LU-inverted
-    M_p, M_i = _jacobi_blocks(p, Ud, Vinv, W, space)
+    M_p, M_i = _jacobi_blocks(ps, Ud, Vinv, W, space, reduce_fn)
     n = M_p.shape[-1]
     Minv = linalg.solve(M_p, eyeD[:n, :n].expand(C, n, n))
     if M_i is None:
@@ -458,8 +501,7 @@ def _schur_solve(p: BAProblem, U, V, W, bc, bp, lam, cg_iters, cg_tol):
         rz = rz_new
 
     # back-substitute the points: dp = Vinv (bp - W^T dx_c)
-    WTdx = segment_sum(mv(WT, x[p.obs_cam]), p.obs_pt, P)
-    return x, mv(Vinv, bp - WTdx)
+    return x, mv(Vinv, bp - pt_sum(x))
 
 
 def _apply_step(p: BAProblem, dx_c, dx_p) -> BAProblem:
@@ -518,8 +560,8 @@ def _solve(p: BAProblem, opts: BAOptions):
         r, z, Jc, Jp = _residuals_and_jacobians(
             p, with_intri=opts.optimize_intrinsics)
         _, w = _robust_cost_and_weight(r, z, p.obs_w, opts.huber_px)
-        U, V, W, bc, bp = _build_normal_blocks(p, r, Jc, Jp, w)
-        dx_c, dx_p = _schur_solve(p, U, V, W, bc, bp, lam, opts.cg_iters,
+        U, V, W, bc, bp = _build_normal_blocks([p], [r], [Jc], [Jp], [w])
+        dx_c, dx_p = _schur_solve([p], U, V, W, bc, bp, lam, opts.cg_iters,
                                   opts.cg_tol)
         cand = _apply_step(p, dx_c, dx_p)
         new_cost = cost_of(cand)

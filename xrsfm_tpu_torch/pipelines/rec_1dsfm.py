@@ -2,7 +2,7 @@
 xrsfm_tpu/pipelines/rec_1dsfm.py; reference: src/rec_1dsfm.cc:14-98).
 
 Usage: python -m xrsfm_tpu_torch.cli rec_1dsfm <bin_dir> <camera_info>
-       <output_dir> [--device cuda]
+       <output_dir> [--n_devices N] [--device cuda]
 
 Per-image SIMPLE_RADIAL cameras from camera_info.txt (EXIF-grade focals,
 zero distortion); frames without an entry take camera 0 and still take
@@ -32,15 +32,12 @@ def main(bin_dir: str, camera_info_path: str, output_dir: str,
          device="cuda"):
     """Run the 1DSfM regime on `device`; returns the map, or None when
     reconstruction fails.  stats, when given, receives the mapper's
-    MapperStats and the seconds.  n_devices > 1 is not ported and
-    raises NotImplementedError."""
+    MapperStats and the seconds.  n_devices > 1 shards the global BA
+    solves, intrinsics-refining ones included, over that many devices
+    (RuntimeError when fewer exist)."""
     dev = resolve_device(device)
-    if n_devices > 1:
-        raise NotImplementedError(
-            "rec_1dsfm over several devices is not ported yet (ROADMAP.md, "
-            "queue 1, item 1: parallel/)")
     t0 = time.time()
-    opts = MapperOptions()
+    opts = MapperOptions(n_devices=n_devices)
     # reference th_rpe_gba = 4 px for internet scenes (rec_1dsfm.cc:88):
     # the final-polish gate; the growth-time filter keeps 16 px, since
     # genuine tracks reproject several px off until the intrinsics are

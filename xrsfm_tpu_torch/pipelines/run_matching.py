@@ -2,7 +2,8 @@
 reference: src/run_matching.cc:153-258).
 
 Usage: python -m xrsfm_tpu_torch.cli run_matching <images_dir>
-       <retrieval_path> <matching_type> <output_dir> [--device cuda]
+       <retrieval_path> <matching_type> <output_dir> [--n_devices N]
+       [--device cuda]
 
 matching_type: sequential | retrieval | covisibility.  Writes ftr.bin /
 size.bin / fp.bin (and fp_init.bin, the covisibility seeds) in the
@@ -26,6 +27,7 @@ from ..feature import retrieval as RET
 from ..feature.expansion import covisibility_matching
 from ..ops.orb import OrbExtractor
 from ..ops.sift import SiftExtractor, SiftOptions
+from ..parallel.mesh import make_mesh
 from ..utils import image_io
 from ..utils import io_features as IOF
 
@@ -129,10 +131,15 @@ def main(
     matching_type: str,
     output_dir: str,
     opts: Optional[fmatch.MatchingOptions] = None,
+    n_devices: int = 1,
     stats: Optional[dict] = None,
     device="cuda",
 ):
     """Run the matching stage on `device` ("cuda" raises without a GPU).
+    n_devices > 1 shards descriptor matching and verification over a
+    "pairs" mesh of that many devices (parallel/mesh.make_mesh: the first
+    n GPUs, which must exist; n virtual shards on the CPU); extraction and
+    retrieval stay on `device`.
 
     stats (optional dict) receives pairs_proposed (the number of candidate
     pairs matched and verified), extract_s and match_verify_s (host-clock
@@ -142,6 +149,8 @@ def main(
     host search) and match_s (matching and verification)."""
     opts = opts or fmatch.MatchingOptions()
     resolve_device(device)
+    mesh = make_mesh(n_devices, device, axis="pairs") if n_devices > 1 \
+        else None
     if matching_type not in ("sequential", "retrieval", "covisibility"):
         raise ValueError(f"unknown matching type {matching_type}")
     os.makedirs(output_dir, exist_ok=True)
@@ -194,12 +203,12 @@ def main(
         verified = covisibility_matching(
             feats, id2rank, opts,
             init_pairs_path=os.path.join(output_dir, "fp_init.bin"),
-            stats=stats, device=device)
+            stats=stats, device=device, mesh=mesh)
     else:
         if stats is not None:
             stats["pairs_proposed"] = len(pairs)
         verified = fmatch.match_and_verify_pairs(feats, pairs, opts,
-                                                 device=device)
+                                                 device=device, mesh=mesh)
     if stats is not None:
         stats["match_verify_s"] = time.time() - t0
 

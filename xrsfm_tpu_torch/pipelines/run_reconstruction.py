@@ -4,7 +4,8 @@ src/run_reconstruction.cc).
 
 Usage: python -m xrsfm_tpu_torch.cli run_reconstruction <bin_dir>
        <camera_txt> <output_dir> [--init_id1 N --init_id2 N]
-       [--correct_pose] [--snapshot_every N] [--resume] [--device cuda]
+       [--correct_pose] [--snapshot_every N] [--resume] [--n_devices N]
+       [--device cuda]
 
 Reads ftr.bin + fp.bin and a single-camera cameras.txt, runs the
 incremental mapper on `device`, and writes cameras.bin / images.bin /
@@ -81,7 +82,8 @@ def main(
     correct_pose turns on loop correction and, with it, the global pose
     polish (the drift-prone sequential regime).  stats, when given,
     receives the mapper's MapperStats and the stage seconds.
-    n_devices > 1 is not ported and raises NotImplementedError."""
+    n_devices > 1 shards the global BA solves over that many devices
+    (RuntimeError when fewer exist)."""
     dev = resolve_device(device)
     t0 = time.time()
     opts = opts or MapperOptions()
@@ -97,7 +99,7 @@ def main(
     if snapshot_every:
         opts.snapshot_every = snapshot_every
         opts.snapshot_path = snap_path
-    mapper = IncrementalMapper(opts, device=dev)  # raises on the unported
+    mapper = IncrementalMapper(opts, device=dev)
     m = build_map(bin_dir, camera_txt)
     if resume and os.path.exists(snap_path):
         SNAP.restore_into(m, snap_path)
