@@ -125,7 +125,24 @@ Phases, each reported on its own line:
      phase 4's bins: phase 7's gates, and distributed BA solves on CUDA.
      No fallback: run_reconstruction.main(n_devices=2, device="cuda") on
      a one-card machine raises; with two or more cards it runs and is
-     gated as the mapper.
+     gated as the mapper;
+ 17. the user scripts' twins (xrsfm_tpu_torch/tools), as a user runs
+     them, at scripts/e2e_bench.py's size (512x384, f = 450, seed 3):
+     tools.synth_dataset writes (a) the corridor, 96 frames of forward
+     odometry, and (b) the loop, 48 frames on a closed circle;
+     tools.run_test_data runs the CLI's run_matching (sequential) and
+     run_reconstruction on each (--correct_pose on the loop, whose
+     retrieval.txt supplies the loop probes), then colours the points;
+     tools.evaluate_model reads the model.  Prints the stages' seconds,
+     topstats launches and chunk shape, the bins' SHA-256, the loop pairs
+     verified (|i - j| >= seq_window), MapperStats.corrections and the
+     polish verdict, registered frames, ATE and reprojection.  Gates:
+     topstats launched and never plain; every BA and pose-graph solve on
+     CUDA; mean reprojection error < 1 px; every point with an
+     observation inside its image coloured; the corridor 96/96; the loop
+     at least one loop pair; registered frames at least and ATE at most
+     the JAX package's fewest and worst over its CPU draws on the same
+     bins (tests/image_draws.py; 2x their median printed beside).
 
 Any failure exits non-zero.  Without a CUDA device it exits 1 at once.
 The last two lines of standard output are the kernel summary (JSON: per
@@ -239,6 +256,34 @@ SHARDS = 4
 BA_SIZES = dict(small=dict(n_cams=200, n_pts=20000, obs_per_pt=7, seed=0),
                 large=dict(n_cams=1024, n_pts=160000, obs_per_pt=7, seed=0))
 DIST_PARITY = 0.01
+# Phase 17: the user scripts' twins (xrsfm_tpu_torch/tools) on two rendered
+# scenes at scripts/e2e_bench.py's size (512x384, f = 450, seed 3): the
+# corridor (forward odometry, e2e_bench's scene) and the loop (image-level
+# loop closure through --correct_pose).  Per scene, the JAX package's
+# run_reconstruction on the CPU on the ftr.bin / fp.bin that an H100 wrote
+# (files with these SHA-256 digests), with its own seeds and with the
+# RANSAC seeds re-salted 1..7 (tests/image_draws.py): every draw
+# registers every frame, and the ATE (% of the span) is a draw.  The
+# corridor: 0.35490, 0.26801, 0.44394, 0.27016, 0.31912, 0.38285, 1.03102
+# and 0.46739%, no correction.  The loop: 0.98902, 0.90533, 0.69640,
+# 12.73336, 0.63054, 0.72628, 0.99675 and 0.52405%, with 0, 0, 0, 2, 0, 0,
+# 1 and 0 loop corrections (the 12.73336% draw's correction degrades the
+# map: ROADMAP.md queue 3).  The gates take the worst draw and the fewest
+# registered; twice the median is printed beside them.
+TOOLS_SCENES = {
+    "corridor": dict(n_cams=96, correct_pose=False, jax=dict(
+        registered=[96] * 8,
+        ate_pct=[0.35490, 0.26801, 0.44394, 0.27016, 0.31912, 0.38285,
+                 1.03102, 0.46739],
+        sha256={"ftr.bin": "7638c0ac4b3d17fff2b31be4788e372772c757e99c7c71ce708fb1dcc507da49",
+                "fp.bin": "f1ed62334a2978533ab0d4df297e008dd60b0899a896c3eac1319092313a2bf2"})),
+    "loop": dict(n_cams=48, correct_pose=True, jax=dict(
+        registered=[48] * 8,
+        ate_pct=[0.98902, 0.90533, 0.69640, 12.73336, 0.63054, 0.72628,
+                 0.99675, 0.52405],
+        sha256={"ftr.bin": "535b08ecbcb72eabd2a526c32c36d6e2623859242af2beae94461ed0aeae5ed9",
+                "fp.bin": "e078f2e1775435cc1a1539ad95a6b2cda5ae60d4130282befad6f897e9fdf30b"})),
+}
 
 
 def fail(msg):
@@ -1442,6 +1487,128 @@ def parallel_phase(work, verified4):
     return launches
 
 
+def _colourable_points(model):
+    """(points with an observation inside its image, all points) of a
+    written model: what tools.pointcloud_color can colour."""
+    from xrsfm_tpu_torch.utils import io_colmap as IOC
+
+    cams = IOC.read_cameras_bin(os.path.join(model, "cameras.bin"))
+    imgs = IOC.read_images_bin(os.path.join(model, "images.bin"))
+    pts = IOC.read_points3d_bin(os.path.join(model, "points3D.bin"))
+    seen = set()
+    for im in imgs.values():
+        cam = cams[im.camera_id]
+        ids = np.asarray(im.point3D_ids, np.int64)
+        x = im.xys[:, 0].astype(np.int64)
+        y = im.xys[:, 1].astype(np.int64)
+        ok = (ids >= 0) & (x >= 0) & (x < cam.width) & (y >= 0) & \
+            (y < cam.height)
+        seen.update(int(i) for i in ids[ok] if int(i) in pts)
+    return len(seen), len(pts)
+
+
+def tools_phase(work, TM):
+    """Phase 17: tools.synth_dataset, tools.run_test_data and
+    tools.evaluate_model, as a user runs them, on the corridor and on the
+    loop with correction, and their gates.  Returns {scene: (topstats
+    launches, the matcher's chunk size N = M)}."""
+    from xrsfm_tpu_torch.feature.matching import MatchingOptions
+    from xrsfm_tpu_torch.tools import evaluate_model, run_test_data
+    from xrsfm_tpu_torch.tools import synth_dataset
+    from xrsfm_tpu_torch.utils import io_features as IOF
+
+    window = MatchingOptions().seq_window
+    launches = {}
+    for scene, cfg in TOOLS_SCENES.items():
+        n, ref = cfg["n_cams"], cfg["jax"]
+        tag = f"[phase 17] {scene}"
+        ws = os.path.join(work, scene)
+        t0 = time.perf_counter()
+        synth_dataset.main([ws, "--n_cams", str(n), "--scene", scene,
+                            "--device", "cuda"])
+        render_s = time.perf_counter() - t0
+        argv = [ws, "--matching", "sequential", "--device", "cuda"]
+        if cfg["correct_pose"]:
+            argv.append("--correct_pose")
+        reset_solver_counts()
+        TM.reset_launch_counts()
+        st = {}
+        try:
+            n_col = run_test_data.main(argv, stats=st)
+        except SystemExit as e:
+            fail(f"{scene}: run_test_data exited with {e.code}")
+        torch.cuda.synchronize()
+        lc = dict(TM.LAUNCHES)
+        counts = solver_counts()[1]
+        bins = os.path.join(ws, "bins")
+        model = os.path.join(ws, "model")
+        feats = IOF.read_features(os.path.join(bins, "ftr.bin"))
+        launches[scene] = (lc["topstats_cuda"], IOF.bucket(
+            max(len(f.keypoints) for f in feats), lo=256))
+        pairs = IOF.read_frame_pairs(os.path.join(bins, "fp.bin"))
+        loops = sorted((p.id1, p.id2) for p in pairs
+                       if abs(p.id1 - p.id2) >= window)
+        sha = {k: _sha256(os.path.join(bins, k)) for k in ("ftr.bin", "fp.bin")}
+        ms = st["reconstruction"]["mapper"]
+        print(f"{tag}: rendered {n} images 512x384 in {render_s:.1f} s; "
+              f"seconds: extraction {st['matching']['extract_s']:.3f}, "
+              f"match + verify {st['matching']['match_verify_s']:.3f} "
+              f"({st['matching']['pairs_proposed']} pairs, "
+              f"{len(pairs)} verified), reconstruction "
+              f"{st['reconstruction_s']:.3f}, colour {st['color_s']:.3f}; "
+              f"topstats launches {lc['topstats_cuda']} (plain "
+              f"{lc['topstats_plain']}) at chunk shape (16, "
+              f"{launches[scene][1]}, {launches[scene][1]}); bins sha256 "
+              f"{json.dumps(sha)}",
+              flush=True)
+        print(f"{tag}: mapper seconds " + json.dumps({
+            k[5:]: round(v, 3) for k, v in vars(ms).items()
+            if k.startswith("time_")}) + f"; solver counts "
+            f"{json.dumps(counts)}", flush=True)
+        ev = evaluate_model.main([model, os.path.join(ws, "gt_poses.txt"),
+                                  "--device", "cuda"])
+        n_ok, n_pts = _colourable_points(model)
+        same = all(sha[k] == h for k, h in ref["sha256"].items())
+        print(f"{tag}: registered {ev['registered']}/{n}, ATE "
+              f"{ev['ate_pct']:.5f}% of span {ev['span']:.4f}, reprojection "
+              f"mean {ev['reproj_mean']:.4f} px, p95 {ev['reproj_p95']:.4f} "
+              f"px; points coloured {n_col} of {n_pts} ({n_ok} with an "
+              f"observation inside its image); loop pairs verified "
+              f"(|i - j| >= {window}) {len(loops)} {loops[:12]}; "
+              f"corrections {ms.corrections}, global polish {ms.polish}",
+              flush=True)
+        print(f"{tag}: JAX package (CPU, {len(ref['ate_pct'])} draws, bins "
+              f"{'identical to' if same else 'differ from'} the "
+              f"measurement's): registered {ref['registered']}, ATE % "
+              f"{ref['ate_pct']}; limit {max(ref['ate_pct']):.5f}% (the worst "
+              f"draw); 2x the median, for information: "
+              f"{2 * statistics.median(ref['ate_pct']):.5f}%", flush=True)
+        check_no_cpu_solve(scene, counts)
+        if lc["topstats_cuda"] <= 0 or lc["topstats_plain"]:
+            fail(f"{scene}: topstats launches {lc}")
+        if counts["ba"]["solves_cuda"] == 0:
+            fail(f"{scene}: no BA solve on CUDA")
+        if counts["pose_graph"]["solves_cuda"] < ms.corrections:
+            fail(f"{scene}: {ms.corrections} corrections but "
+                 f"{counts['pose_graph']['solves_cuda']} pose-graph solves")
+        if not (ev["reproj_mean"] is not None
+                and ev["reproj_mean"] < MAX_REPROJ_PX):
+            fail(f"{scene}: mean reprojection error {ev['reproj_mean']}")
+        if n_col != n_ok or n_ok != n_pts:
+            fail(f"{scene}: {n_col} points coloured, {n_ok} colourable, "
+                 f"{n_pts} in the model")
+        if cfg["correct_pose"] and not loops:
+            fail(f"{scene}: no loop pair verified")
+        if ev["registered"] < min(ref["registered"]):
+            fail(f"{scene}: {ev['registered']}/{n} registered, the JAX "
+                 f"package's fewest {min(ref['registered'])}")
+        if not ev["ate_pct"] <= max(ref["ate_pct"]):
+            fail(f"{scene}: ATE {ev['ate_pct']:.5f}% above the JAX "
+                 f"package's worst draw {max(ref['ate_pct']):.5f}%")
+        print(f"{tag}: gates passed", flush=True)
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke run needs a GPU")
@@ -1496,10 +1663,10 @@ def main():
     print(f"[phase 3] topstats B={PHASE3_RAGGED[0]} N={PHASE3_RAGGED[1]} "
           f"M={PHASE3_RAGGED[2]} (ragged): bit-equal to plain", flush=True)
 
-    # phases 4-16: the matching stage, BA, the reconstruction stage, the
+    # phases 4-17: the matching stage, BA, the reconstruction stage, the
     # circuit with loop closure, the correction path, triangulation, the
     # unordered regime, ORB, snapshot/resume, metric scale, the CLI,
-    # several shards
+    # several shards, the user scripts' twins
     scratch = os.path.dirname(build.BUILD_DIR)  # build/, git-ignored
     os.makedirs(scratch, exist_ok=True)
     work = tempfile.mkdtemp(prefix="chip_smoke_", dir=scratch)
@@ -1518,12 +1685,14 @@ def main():
         scale_phase(work, model)
         cli_phase(work, model)
         launches16 = parallel_phase(work, verified4)
+        launches17 = tools_phase(work, TM)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
     k_main = IOF.bucket(max(counts), lo=256)
     k_11 = IOF.bucket(max(kps11), lo=256)
-    for kk in (k_main, k_11):
+    k_17 = sorted({kk for _, kk in launches17.values()})
+    for kk in [k_main, k_11] + k_17:
         if (16, kk, kk) not in kstats:
             phase3(16, kk, kk)
     err = max([v["max_abs_err"] for v in kstats.values()]
@@ -1535,11 +1704,20 @@ def main():
           f"launch, {k11['queued_ms']:.4f} ms queued, bound "
           f"{k11['bound_ms']:.5f} ms by {k11['bound_by']}, plain "
           f"{k11['plain_ms']:.4f} ms", flush=True)
+    for scene, (n17, kk) in launches17.items():
+        k17 = kstats[(16, kk, kk)]
+        print(f"[summary] topstats at phase 17's {scene} chunk shape B=16 "
+              f"N=M={kk}: {n17} launches, {k17['ms']:.4f} ms as one launch, "
+              f"{k17['queued_ms']:.4f} ms queued, bound "
+              f"{k17['bound_ms']:.5f} ms by {k17['bound_by']}, plain "
+              f"{k17['plain_ms']:.4f} ms", flush=True)
+    n17 = sum(n for n, _ in launches17.values())
     print(f"[summary] topstats launches: phase 4 "
           f"{launches['topstats_cuda']}, phase 11 "
-          f"{launches11['topstats_cuda']}, phase 16 (sharded) {launches16}",
-          flush=True)
-    print(f"[summary] kernel summary below: launches of phases 4, 11 and 16; "
+          f"{launches11['topstats_cuda']}, phase 16 (sharded) {launches16}, "
+          f"phase 17 {n17}", flush=True)
+    print(f"[summary] kernel summary below: launches of phases 4, 11, 16 and "
+          f"17; "
           f"times and bound at phase 4's chunk shape B=16 N=M={k_main}",
           flush=True)
     print(json.dumps({"kernels": [{
@@ -1548,7 +1726,7 @@ def main():
         "source": "xrsfm_tpu_torch/csrc/topstats.cu",
         "replaces": "xrsfm_tpu/ops/matching.py:33",
         "launches": (launches["topstats_cuda"] + launches11["topstats_cuda"]
-                     + launches16),
+                     + launches16 + n17),
         "max_abs_err": err,
         "ms": k["ms"],
         "queued_ms": k["queued_ms"],

@@ -86,3 +86,78 @@ def test_sift_extract_batch_matches_jax():
         assert abs(len(tk) - len(jk)) <= 1
         dist, nn = cKDTree(tk[:, :2]).query(jk[:, :2])
         assert _agreeing(jk, tk, dist, nn).mean() >= 0.98
+
+
+# tests/test_sift_ab.py's gates held by the port's extractor: its options,
+# warps and metrics, cv2.SIFT as the yardstick
+AB_OPTS = dict(num_octaves=4, features_per_octave=384, max_features=768,
+               first_octave=-1)
+
+
+def _port_sift(img8):
+    return TS.SiftExtractor(TS.SiftOptions(**AB_OPTS), device="cpu").extract(
+        img8.astype(np.float32) / 255.0)
+
+
+def test_sift_orientation_consistency_under_rotation():
+    """tests/test_sift_ab.py's orientation gate on the port: under a 17
+    degree in-plane rotation the dominant orientation of the repeatable
+    keypoints (>= 80 within 1.5 px) tracks the warp with median jitter <=
+    2 deg and circular-mean bias <= 1 deg (the warp is cv2's)."""
+    pytest.importorskip("cv2")
+    import test_sift_ab as AB
+
+    img, _ = make_texture(256, 256, seed=5, n_blobs=180)
+    img8 = (img * 255).astype(np.uint8)
+    ang = 17.0
+    img2, M = AB._warp(img8, angle_deg=ang)
+    k1, _ = _port_sift(img8)
+    k2, _ = _port_sift(img2)
+    d, j = cKDTree(k2[:, :2]).query(AB._apply_M(M, k1[:, :2]))
+    ok = d < 1.5
+    assert ok.sum() >= 80, f"only {ok.sum()} repeatable keypoints"
+    delta = np.angle(np.exp(1j * (k2[j[ok], 3] - k1[ok, 3])))
+    mu = np.angle(np.mean(np.exp(1j * delta)))
+    jitter = np.degrees(np.median(np.abs(np.angle(np.exp(1j * (delta - mu))))))
+    mean_err = abs(np.degrees(mu) + ang)  # y down: theta2 ~ theta1 - ang
+    assert jitter <= 2.0, f"orientation jitter {jitter:.2f} deg"
+    assert mean_err <= 1.0, f"orientation mean off by {mean_err:.2f} deg"
+
+
+@pytest.mark.slow
+def test_sift_ab_vs_cv2():
+    """tests/test_sift_ab.py's A/B on the port: per warp, repeatability
+    >= 0.9 x cv2.SIFT's - 0.02 and warp-consistent ratio + mutual matches
+    (the port's matcher, both descriptor sets RootSIFT-quantized) >= 0.9 x
+    cv2's - 3."""
+    pytest.importorskip("cv2")
+    import test_sift_ab as AB
+    from xrsfm_tpu_torch.ops.matching import match_pair_host
+
+    def verified(kp1, d1, kp2, d2, M, tol=3.0):
+        if len(d1) == 0 or len(d2) == 0:
+            return 0
+        matches, _ = match_pair_host(d1, d2, device="cpu")
+        if len(matches) == 0:
+            return 0
+        pred = AB._apply_M(M, kp1[matches[:, 0], :2])
+        return int(np.sum(np.linalg.norm(
+            pred - kp2[matches[:, 1], :2], axis=1) < tol))
+
+    img, _ = make_texture(h=320, w=320, seed=3, n_blobs=220)
+    img8 = (img * 255).astype(np.uint8)
+    h, w = img8.shape
+    for name, kw in AB.WARPS:
+        img2, M = AB._warp(img8, **kw)
+        k1o, d1o = _port_sift(img8)
+        k2o, d2o = _port_sift(img2)
+        k1c, d1c = AB._cv2_sift(img8)
+        k2c, d2c = AB._cv2_sift(img2)
+        rep_o = AB._repeatability(k1o, k2o, M, h, w)
+        rep_c = AB._repeatability(k1c, k2c, M, h, w)
+        vm_o = verified(k1o, d1o, k2o, d2o, M)
+        vm_c = verified(k1c, d1c, k2c, d2c, M)
+        print(f"[sift-ab] {name}: repeat port {rep_o:.2f} cv2 {rep_c:.2f}, "
+              f"verified port {vm_o} cv2 {vm_c}", flush=True)
+        assert rep_o >= 0.9 * rep_c - 0.02, (name, rep_o, rep_c)
+        assert vm_o >= 0.9 * vm_c - 3, (name, vm_o, vm_c)

@@ -124,7 +124,11 @@ def _parser():
     return ap
 
 
-def main(argv=None):
+def main(argv=None, stats=None):
+    """Run one command.  stats (optional dict), for a caller in the same
+    process: the pipeline of run_matching, run_reconstruction, rec_kitti
+    or rec_1dsfm fills it as its main() documents.  Exits 1 when the
+    pipeline failed."""
     argv = argv if argv is not None else sys.argv[1:]
     args = _parser().parse_args(argv)
     if args.config or any(v is None for k, v in vars(args).items()
@@ -136,19 +140,20 @@ def main(argv=None):
     from .utils.profiling import maybe_trace
 
     with maybe_trace(args.profile_dir):
-        ok = _dispatch(args)
+        ok = _dispatch(args, stats)
     if ok is None:
         sys.exit(1)
 
 
-def _dispatch(args):
+def _dispatch(args, stats=None):
     """Run the command; None when its pipeline failed."""
     if args.cmd == "run_matching":
         from .pipelines import run_matching as M
 
         return M.main(args.images_dir, args.retrieval_path,
                       args.matching_type, args.output_dir,
-                      n_devices=args.n_devices, device=args.device) or True
+                      n_devices=args.n_devices, stats=stats,
+                      device=args.device) or True
     if args.cmd == "retrieve":
         from .pipelines import retrieve as RV
 
@@ -163,7 +168,7 @@ def _dispatch(args):
                       correct_pose=args.correct_pose,
                       snapshot_every=args.snapshot_every,
                       resume=args.resume, n_devices=args.n_devices,
-                      device=args.device)
+                      stats=stats, device=args.device)
     if args.cmd == "run_triangulation":
         from .pipelines import run_triangulation as T
 
@@ -174,12 +179,13 @@ def _dispatch(args):
         from .pipelines import rec_kitti as K
 
         return K.main(args.bin_dir, args.seq_name, args.output_dir,
-                      args.timestamp_path, device=args.device)
+                      args.timestamp_path, stats=stats, device=args.device)
     if args.cmd == "rec_1dsfm":
         from .pipelines import rec_1dsfm as U
 
         return U.main(args.bin_dir, args.camera_info_path, args.output_dir,
-                      n_devices=args.n_devices, device=args.device)
+                      n_devices=args.n_devices, stats=stats,
+                      device=args.device)
     if args.cmd == "estimate_scale":
         from .pipelines import estimate_scale as S
 

@@ -4,7 +4,10 @@ Reads 8-bit grayscale, grayscale+alpha, RGB and RGBA PNG (non-interlaced,
 all five row filters) and P5 PGM with maxval <= 255; writes grayscale or
 RGB PNG and grayscale PGM.  `read_gray` converts colour to gray as
 OpenCV's PNG reader does (libpng's rgb-to-gray), so it returns what
-``cv2.imread(path, cv2.IMREAD_GRAYSCALE)`` returns for these files.
+``cv2.imread(path, cv2.IMREAD_GRAYSCALE)`` returns for these files;
+`read_rgb` returns the raw samples in RGB order, what
+``cv2.cvtColor(cv2.imread(path, cv2.IMREAD_COLOR), cv2.COLOR_BGR2RGB)``
+returns.
 """
 
 from __future__ import annotations
@@ -150,6 +153,13 @@ def read_gray(path: str) -> np.ndarray:
     """[H, W] uint8 grayscale of a PNG or PGM file."""
     img = read_image(path)
     return img if img.ndim == 2 else rgb_to_gray(img)
+
+
+def read_rgb(path: str) -> np.ndarray:
+    """[H, W, 3] uint8 RGB of a PNG or PGM file: the colour samples as
+    stored, gray replicated into the three channels."""
+    img = read_image(path)
+    return img if img.ndim == 3 else np.repeat(img[:, :, None], 3, axis=2)
 
 
 def read_gray_or_none(path: str) -> Optional[np.ndarray]:

@@ -1,23 +1,25 @@
-"""Synthetic data: the arc scene of scripts/synth_dataset.py, the
-kitti-class circuit and the unordered (1DSfM-class) workspaces of
-scripts/synth_features.py, seeded descriptor sets for the matcher's kernel
-checks, the bundle-adjustment benchmark problem of bench.make_ba_problem,
-and the blob texture of the ORB and SIFT tests.
+"""Synthetic data: the image scenes of scripts/synth_dataset.py (arc,
+loop, corridor), the feature-level workspaces of scripts/synth_features.py
+(the kitti-class circuit, the unordered landmark ring and the street
+tour), seeded descriptor sets for the matcher's kernel checks, the
+bundle-adjustment benchmark problem of bench.make_ba_problem, and the blob
+texture of the ORB and SIFT tests.
 
-The arc scene ray-casts two textured Lambertian planes (a wall and a
-floor) from an arc of cameras, so every pixel observes a fixed 3D point
-and ground-truth poses are known.  numpy/scipy only, so it runs where
-neither cv2 nor the JAX package is installed.
+The image scenes ray-cast textured Lambertian planes, so every pixel
+observes a fixed 3D point and ground-truth poses are known.  numpy/scipy
+only, so it runs where neither cv2 nor the JAX package is installed.
 
-Dataset layout written by `write_arc_dataset`:
+Dataset layout written by `write_dataset`:
   <out>/images/frame%04d.png
   <out>/camera.txt          (reference single-camera format)
   <out>/gt_poses.txt        (name qw qx qy qz tx ty tz, Tcw)
   <out>/retrieval.txt       (ranked pairs, view-overlap order)
+  <out>/times.txt           (corridor only: KITTI-style timestamps)
 """
 
 from __future__ import annotations
 
+import math
 import os
 from collections import Counter
 from typing import List, Tuple
@@ -27,6 +29,7 @@ from scipy.ndimage import gaussian_filter
 
 from . import image_io
 from . import io_features as IOF
+from .geometry import rotmat_to_quat_np
 
 
 def look_at_R(center, target, up=(0.0, -1.0, 0.0)):
@@ -40,11 +43,60 @@ def look_at_R(center, target, up=(0.0, -1.0, 0.0)):
     return np.stack([x, y, z])
 
 
-def make_texture(rng, res=1024, smooth=3):
-    """Random smooth texture: Gaussian-blurred uniform noise in [0, 1]."""
+def _cv2_gaussian_kernel(n, sigma):
+    """cv2.getGaussianKernel(n, sigma, CV_32F): OpenCV's bit-exact kernel
+    (getGaussianKernelBitExact, evaluated in float64), cast to float32."""
+    half = (n - 1) // 2
+    scale = -0.125 / (sigma * sigma)
+    vals = [math.exp(float(x * x) * scale) for x in range(1 - n, -1, 2)]
+    total = 0.0
+    for v in vals:  # summed in OpenCV's order
+        total += v
+    mul = 1.0 / (total * 2.0 + 1.0)
+    k = np.empty(n)
+    k[:half] = [v * mul for v in vals]
+    k[half] = mul
+    k[half + 1:] = k[:half][::-1]
+    return k.astype(np.float32)
+
+
+def gaussian_blur_cv2(t, sigma):
+    """cv2.GaussianBlur(t, (0, 0), sigma) of a float32 image, bit for bit:
+    the 4-sigma float32 kernel, BORDER_REFLECT_101, the row pass as fused
+    multiply-adds over the taps in order, the column pass as the symmetric
+    sum (the centre tap's product, then a fused multiply-add of each tap
+    with the float32 sum of its two mirrored rows).  A float32 fused
+    multiply-add is a float64 multiply-add rounded to float32: the product
+    of two float32 is exact in float64."""
+    n = int(round(sigma * 8 + 1)) | 1
+    k = _cv2_gaussian_kernel(n, float(sigma)).astype(np.float64)
+    r = n // 2
+    h, w = t.shape
+    p = np.pad(t, [(0, 0), (r, r)], mode="reflect")
+    acc = np.zeros((h, w), np.float32)
+    for j in range(n):
+        acc = (acc + k[j] * p[:, j:j + w]).astype(np.float32)
+    p = np.pad(acc, [(r, r), (0, 0)], mode="reflect")
+    out = (np.float32(k[r]) * p[r:r + h]).astype(np.float32)
+    for j in range(1, r + 1):
+        pair = p[r + j:r + j + h] + p[r - j:r - j + h]  # float32 sum
+        out = (out + k[r + j] * pair).astype(np.float32)
+    return out
+
+
+def make_texture(rng, res=1024, smooth=3, cv2_blur=True):
+    """Random smooth texture: Gaussian-blurred uniform noise in [0, 1].
+    cv2_blur: blur as cv2.GaussianBlur does (`gaussian_blur_cv2`), so the
+    texture is scripts/synth_dataset.py's where cv2 is installed; False
+    blurs with scipy's gaussian_filter, whose last float bits differ and
+    flip a few pixels of a render by one grey level (the arc scene's,
+    kept so that the recorded digests of its images and bins hold)."""
     t = rng.uniform(0, 1, (res, res)).astype(np.float32)
-    # mode "mirror" is cv2's default BORDER_REFLECT_101
-    t = gaussian_filter(t, smooth, mode="mirror", truncate=4.0)
+    if cv2_blur:
+        t = gaussian_blur_cv2(t, smooth)
+    else:
+        # mode "mirror" is cv2's default BORDER_REFLECT_101
+        t = gaussian_filter(t, smooth, mode="mirror", truncate=4.0)
     t = (t - t.min()) / (t.max() - t.min() + 1e-9)
     return t
 
@@ -119,10 +171,10 @@ def arc_scene(rng, n_cams):
     planes = [
         # wall z=6.8 spanning x,y in [-4, 4]
         Plane([-ext / 2, -ext / 2, 6.8], [ext, 0, 0], [0, ext, 0],
-              make_texture(rng)),
+              make_texture(rng, cv2_blur=False)),
         # floor y=1.8 spanning x in [-4, 4], z in [0, 8]
         Plane([-ext / 2, 1.8, 0.0], [ext, 0, 0], [0, 0, ext],
-              make_texture(rng)),
+              make_texture(rng, cv2_blur=False)),
     ]
     poses = []
     for i in range(n_cams):
@@ -139,37 +191,93 @@ def arc_scene(rng, n_cams):
     return planes, poses, ranks
 
 
-def rotmat_to_quat(R) -> np.ndarray:
-    """Rotation matrix [..., 3, 3] -> unit quaternion (w, x, y, z), w >= 0
-    (branch-free Shepperd)."""
-    R = np.asarray(R, np.float64)
-    m00, m01, m02 = R[..., 0, 0], R[..., 0, 1], R[..., 0, 2]
-    m10, m11, m12 = R[..., 1, 0], R[..., 1, 1], R[..., 1, 2]
-    m20, m21, m22 = R[..., 2, 0], R[..., 2, 1], R[..., 2, 2]
-    tr = m00 + m11 + m22
-    qw = np.stack([1 + tr, m21 - m12, m02 - m20, m10 - m01], axis=-1)
-    qx = np.stack([m21 - m12, 1 + m00 - m11 - m22, m01 + m10, m02 + m20], axis=-1)
-    qy = np.stack([m02 - m20, m01 + m10, 1 - m00 + m11 - m22, m12 + m21], axis=-1)
-    qz = np.stack([m10 - m01, m02 + m20, m12 + m21, 1 - m00 - m11 + m22], axis=-1)
-    scores = np.stack(
-        [1 + tr, 1 + m00 - m11 - m22, 1 - m00 + m11 - m22, 1 - m00 - m11 + m22],
-        axis=-1,
-    )
-    idx = np.argmax(scores, axis=-1)
-    cand = np.stack([qw, qx, qy, qz], axis=-2)
-    q = np.take_along_axis(cand, idx[..., None, None], axis=-2)[..., 0, :]
-    q = q / np.linalg.norm(q, axis=-1, keepdims=True)
-    return q * np.where(q[..., :1] < 0, -1.0, 1.0)
+def loop_scene(rng, n_cams, room=6.0, radius=2.5, height=3.6):
+    """Square room (4 walls, floor, ceiling), cameras on a circle looking
+    tangentially: the trajectory closes on itself after 360 degrees, so
+    sequential mapping accumulates drift that only the loop-closure pairs
+    (retrieval wraparound) can correct."""
+    L = room
+    hh = height / 2
+    walls = []
+    for (p0, ex) in [
+        ([-L, -hh, L], [2 * L, 0, 0]),   # wall z=+L
+        ([L, -hh, -L], [0, 0, 2 * L]),   # wall x=+L, ex along z
+        ([L, -hh, -L], [-2 * L, 0, 0]),  # wall z=-L
+        ([-L, -hh, L], [0, 0, -2 * L]),  # wall x=-L
+    ]:
+        walls.append(Plane(p0, ex, [0, height, 0], make_texture(rng)))
+    floor = Plane([-L, hh, -L], [2 * L, 0, 0], [0, 0, 2 * L],
+                  make_texture(rng))
+    ceil = Plane([-L, -hh, -L], [2 * L, 0, 0], [0, 0, 2 * L],
+                 make_texture(rng))
+    planes = walls + [floor, ceil]
+    poses = []
+    for i in range(n_cams):
+        a = 2 * np.pi * i / n_cams
+        center = np.array(
+            [radius * np.cos(a), 0.12 * np.sin(3 * a), radius * np.sin(a)]
+        )
+        # forward along the circle, slightly outward
+        fwd = np.array([-np.sin(a), 0.0, np.cos(a)])
+        out = np.array([np.cos(a), 0.0, np.sin(a)])
+        R = look_at_R(center, center + 4.0 * fwd + 1.2 * out)
+        poses.append((R, -R @ center))
+
+    def cdist(i, j):  # circular index distance: the true overlap order
+        d = abs(i - j)
+        return min(d, n_cams - d)
+
+    ranks = [
+        [j for j in sorted(range(n_cams), key=lambda j: cdist(i, j)) if j != i]
+        for i in range(n_cams)
+    ]
+    return planes, poses, ranks
 
 
-def write_arc_dataset(out_dir, n_cams=8, seed=3, w=512, h=384, f=450.0,
-                      ext=".png") -> Tuple[List[str], list, np.ndarray]:
-    """Render the arc scene into out_dir (layout in the module docstring).
-    Returns (image names, poses [(R, t)], intrinsics K [3, 3])."""
+def corridor_scene(rng, n_cams, half_w=3.0, height=4.0, step=0.55):
+    """KITTI-like forward motion: two side walls, a floor and an end
+    wall."""
+    length = n_cams * step + 14.0
+    hh = height / 2
+    planes = [
+        Plane([-half_w, -hh, 0], [0, 0, length], [0, height, 0],
+              make_texture(rng)),     # left wall x=-half_w
+        Plane([half_w, -hh, 0], [0, 0, length], [0, height, 0],
+              make_texture(rng)),     # right wall x=+half_w
+        Plane([-half_w, hh, 0], [2 * half_w, 0, 0], [0, 0, length],
+              make_texture(rng)),     # floor
+        Plane([-half_w, -hh, length], [2 * half_w, 0, 0], [0, height, 0],
+              make_texture(rng)),     # end wall
+    ]
+    poses = []
+    for i in range(n_cams):
+        center = np.array(
+            [0.45 * np.sin(0.13 * i), 0.08 * np.sin(0.4 * i), i * step]
+        )
+        yaw = 0.06 * np.cos(0.13 * i)
+        target = center + np.array([np.sin(yaw) * 4.0, 0.0, 4.0])
+        R = look_at_R(center, target)
+        poses.append((R, -R @ center))
+    ranks = [
+        [j for j in sorted(range(n_cams), key=lambda j: abs(i - j)) if j != i]
+        for i in range(n_cams)
+    ]
+    return planes, poses, ranks
+
+
+SCENES = {"arc": arc_scene, "loop": loop_scene, "corridor": corridor_scene}
+
+
+def write_dataset(out_dir, n_cams=8, seed=3, w=512, h=384, f=450.0,
+                  scene="arc", ext=".png") -> Tuple[List[str], list, np.ndarray]:
+    """Render a scene of SCENES into out_dir (layout in the module
+    docstring): scripts/synth_dataset.main's text files byte for byte and
+    its pixels (the PNG encoder differs).  Returns (image names, poses
+    [(R, t)], intrinsics K [3, 3])."""
     rng = np.random.default_rng(seed)
     os.makedirs(os.path.join(out_dir, "images"), exist_ok=True)
     cx, cy = w / 2, h / 2
-    planes, poses, ranks = arc_scene(rng, n_cams)
+    planes, poses, ranks = SCENES[scene](rng, n_cams)
     names = []
     for i, (R, t) in enumerate(poses):
         img = render_scene(planes, R, t, f, cx, cy, w, h)
@@ -180,7 +288,7 @@ def write_arc_dataset(out_dir, n_cams=8, seed=3, w=512, h=384, f=450.0,
         fh.write(f"0 PINHOLE {w} {h} {f} {f} {cx} {cy}\n")
     with open(os.path.join(out_dir, "gt_poses.txt"), "w") as fh:
         for name, (R, t) in zip(names, poses):
-            q = rotmat_to_quat(R)
+            q = rotmat_to_quat_np(R)
             fh.write(
                 f"{name} {q[0]} {q[1]} {q[2]} {q[3]} {t[0]} {t[1]} {t[2]}\n"
             )
@@ -188,8 +296,18 @@ def write_arc_dataset(out_dir, n_cams=8, seed=3, w=512, h=384, f=450.0,
         for i, name in enumerate(names):
             for j in ranks[i]:
                 fh.write(f"{name} {names[j]}\n")
+    if scene == "corridor":
+        with open(os.path.join(out_dir, "times.txt"), "w") as fh:
+            for i in range(n_cams):
+                fh.write(f"{i * 0.1:.6e}\n")
     K = np.array([[f, 0, cx], [0, f, cy], [0, 0, 1.0]])
     return names, poses, K
+
+
+def write_arc_dataset(out_dir, n_cams=8, seed=3, w=512, h=384, f=450.0,
+                      ext=".png") -> Tuple[List[str], list, np.ndarray]:
+    """`write_dataset` of the arc scene."""
+    return write_dataset(out_dir, n_cams, seed, w, h, f, "arc", ext)
 
 
 def fundamental_from_poses(K, pose1, pose2) -> np.ndarray:
@@ -605,12 +723,43 @@ def synth_descriptors(frames_obs, n_points, rng, noise=0.25, sparsity=0.65):
     return descs
 
 
-def _write_features_and_poses(out_dir, names, frames_obs, R, centers,
-                              descs=None):
-    """ftr.bin (keypoints at scale 2, descriptors or zeros) and
-    gt_poses.txt (name qw qx qy qz tx ty tz, Tcw)."""
-    from .geometry import rotmat_to_quat_np
+def write_features_workspace(out_dir, scene="kitti", n_frames=1000, seed=0,
+                             per_image_cameras=False, focal_noise=0.08,
+                             descriptors=False, distractors=0) -> dict:
+    """scripts/synth_features.main, byte for byte for the same arguments:
+    the kitti-class circuit ("kitti"), the landmark ring ("unordered") or
+    the street tour ("tour"), with `distractors` junk frames after the
+    n_frames genuine ones (not for "kitti").  Writes ftr.bin (keypoints at
+    scale 2; descriptors matchable with `descriptors`, else zeros), fp.bin
+    (the ground-truth pairs: the circuit's window and loop closures, or
+    covisibility), gt_poses.txt, size.bin with `descriptors`, and either
+    camera.txt (one PINHOLE camera) or, with `per_image_cameras`, per frame
+    a SIMPLE_RADIAL camera (true focal U[430, 570], k1 U[-0.08, 0.04]):
+    camera_info.txt with EXIF-grade focals (the true ones off by
+    U[-focal_noise, +focal_noise], k = 0) and gt_cameras.txt (name focal
+    k1).
 
+    Returns a dict: names, ids (observed point ids per frame), n_points,
+    n_scene_points (a point id below it is scene structure, so two frames'
+    shared ids below it give their ground-truth covisibility), n_obs and
+    n_pairs."""
+    rng = np.random.default_rng(seed)
+    os.makedirs(out_dir, exist_ok=True)
+    if scene == "kitti":
+        centers, R, pts = kitti_scene(rng, n_frames)
+        distractors = 0
+    else:
+        make = tour_scene if scene == "tour" else unordered_scene
+        centers, R, pts = make(rng, n_frames, n_distractors=distractors)
+    n_total = len(centers)
+    focals = k1s = None
+    if per_image_cameras:
+        focals = rng.uniform(430.0, 570.0, n_total)
+        k1s = rng.uniform(-0.08, 0.04, n_total)
+    frames_obs = project_all(centers, R, pts, rng, focals=focals, k1s=k1s)
+    names = [f"img{i:05d}.png" for i in range(n_total)]
+    descs = (synth_descriptors(frames_obs, len(pts), rng) if descriptors
+             else None)
     feats = []
     for i, (_ids, uv) in enumerate(frames_obs):
         kp = np.zeros((len(uv), 4), np.float32)
@@ -622,75 +771,62 @@ def _write_features_and_poses(out_dir, names, frames_obs, R, centers,
                          else np.zeros((len(uv), 128), np.uint8))))
     IOF.write_features(os.path.join(out_dir, "ftr.bin"), feats,
                        with_descs=True)
+    if descriptors:
+        IOF.write_image_size(os.path.join(out_dir, "size.bin"),
+                             np.tile(np.asarray([[WS_W, WS_H]], np.int32),
+                                     (n_total, 1)))
+    if scene == "kitti":
+        pairs = build_kitti_pairs(frames_obs, n_total, rng, centers)
+    else:
+        pairs = build_covisibility_pairs(frames_obs, n_total, rng)
+    IOF.write_frame_pairs(os.path.join(out_dir, "fp.bin"), pairs)
+    cx, cy = WS_W / 2.0, WS_H / 2.0
+    if per_image_cameras:
+        noisy = focals * (1.0 + rng.uniform(-focal_noise, focal_noise,
+                                            n_total))
+        with open(os.path.join(out_dir, "camera_info.txt"), "w") as f:
+            for i in range(n_total):
+                f.write(f"{names[i]} SIMPLE_RADIAL {WS_W} {WS_H} "
+                        f"{noisy[i]:.3f} {cx} {cy} 0.0\n")
+        with open(os.path.join(out_dir, "gt_cameras.txt"), "w") as f:
+            for i in range(n_total):
+                f.write(f"{names[i]} {focals[i]:.6f} {k1s[i]:.8f}\n")
+    else:
+        with open(os.path.join(out_dir, "camera.txt"), "w") as f:
+            f.write(f"0 PINHOLE {WS_W} {WS_H} {WS_FX} {WS_FX} {cx} {cy}\n")
     with open(os.path.join(out_dir, "gt_poses.txt"), "w") as f:
-        for i in range(len(names)):
+        for i in range(n_total):
             q = rotmat_to_quat_np(R[i])
             t = -R[i] @ centers[i]
             f.write(f"{names[i]} {q[0]:.9f} {q[1]:.9f} {q[2]:.9f} {q[3]:.9f} "
                     f"{t[0]:.6f} {t[1]:.6f} {t[2]:.6f}\n")
+    return dict(names=names, ids=[ids for ids, _ in frames_obs],
+                n_points=len(pts),
+                n_scene_points=len(pts) - DISTRACTOR_PTS * distractors,
+                n_obs=sum(len(uv) for _, uv in frames_obs),
+                n_pairs=len(pairs))
 
 
 def write_kitti_workspace(out_dir, n_frames=1000, seed=0):
-    """The kitti-class circuit workspace of scripts/synth_features.py
-    (`--scene kitti`), byte for byte for the same n_frames and seed:
-    ftr.bin (keypoints, zero descriptors), fp.bin (verified pairs with loop
-    closures), camera.txt and gt_poses.txt.  Returns the image names."""
-    rng = np.random.default_rng(seed)
-    os.makedirs(out_dir, exist_ok=True)
-    centers, R, pts = kitti_scene(rng, n_frames)
-    frames_obs = project_all(centers, R, pts, rng)
-    names = [f"img{i:05d}.png" for i in range(n_frames)]
-    _write_features_and_poses(out_dir, names, frames_obs, R, centers)
-    pairs = build_kitti_pairs(frames_obs, n_frames, rng, centers)
-    IOF.write_frame_pairs(os.path.join(out_dir, "fp.bin"), pairs)
-    with open(os.path.join(out_dir, "camera.txt"), "w") as f:
-        f.write(f"0 PINHOLE {WS_W} {WS_H} {WS_FX} {WS_FX} "
-                f"{WS_W / 2.0} {WS_H / 2.0}\n")
-    return names
+    """`write_features_workspace` of the kitti-class circuit (scripts/
+    synth_features.py --scene kitti): ftr.bin with zero descriptors,
+    fp.bin with loop closures, camera.txt and gt_poses.txt.  Returns the
+    image names."""
+    return write_features_workspace(out_dir, "kitti", n_frames, seed)["names"]
 
 
 def write_unordered_workspace(out_dir, scene="unordered", n_frames=80,
                               seed=0, distractors=0, focal_noise=0.08):
-    """The 1DSfM-class workspace of scripts/synth_features.py
-    (`main(..., scene, per_image_cameras=True, descriptors=True,
-    distractors=...)`), byte for byte for the same arguments: the landmark
-    ring (scene "unordered") or the street tour ("tour"), with n_frames
-    genuine frames and `distractors` junk frames after them; per frame a
-    SIMPLE_RADIAL camera (true focal U[430, 570], k1 U[-0.08, 0.04]).
-    Writes ftr.bin with matchable descriptors, size.bin, fp.bin (the
-    ground-truth covisibility pairs), camera_info.txt (EXIF-grade focals:
-    the true ones off by U[-focal_noise, +focal_noise], k = 0),
-    gt_cameras.txt (name focal k1) and gt_poses.txt.
-
-    Returns (names, observed point ids per frame, number of genuine scene
-    points): a point id below that number is scene structure, so two
-    frames' shared ids below it give their ground-truth covisibility."""
-    rng = np.random.default_rng(seed)
-    os.makedirs(out_dir, exist_ok=True)
-    make = tour_scene if scene == "tour" else unordered_scene
-    centers, R, pts = make(rng, n_frames, n_distractors=distractors)
-    n_total = len(centers)
-    focals = rng.uniform(430.0, 570.0, n_total)
-    k1s = rng.uniform(-0.08, 0.04, n_total)
-    frames_obs = project_all(centers, R, pts, rng, focals=focals, k1s=k1s)
-    names = [f"img{i:05d}.png" for i in range(n_total)]
-    descs = synth_descriptors(frames_obs, len(pts), rng)
-    _write_features_and_poses(out_dir, names, frames_obs, R, centers, descs)
-    IOF.write_image_size(os.path.join(out_dir, "size.bin"),
-                         np.tile(np.asarray([[WS_W, WS_H]], np.int32),
-                                 (n_total, 1)))
-    pairs = build_covisibility_pairs(frames_obs, n_total, rng)
-    IOF.write_frame_pairs(os.path.join(out_dir, "fp.bin"), pairs)
-    noisy = focals * (1.0 + rng.uniform(-focal_noise, focal_noise, n_total))
-    with open(os.path.join(out_dir, "camera_info.txt"), "w") as f:
-        for i in range(n_total):
-            f.write(f"{names[i]} SIMPLE_RADIAL {WS_W} {WS_H} "
-                    f"{noisy[i]:.3f} {WS_W / 2.0} {WS_H / 2.0} 0.0\n")
-    with open(os.path.join(out_dir, "gt_cameras.txt"), "w") as f:
-        for i in range(n_total):
-            f.write(f"{names[i]} {focals[i]:.6f} {k1s[i]:.8f}\n")
-    return (names, [ids for ids, _ in frames_obs],
-            len(pts) - DISTRACTOR_PTS * distractors)
+    """`write_features_workspace` of the 1DSfM regime (scripts/
+    synth_features.py --per_image_cameras --descriptors): the landmark
+    ring ("unordered") or the street tour ("tour") with per-image
+    SIMPLE_RADIAL cameras and matchable descriptors.  Returns (names,
+    observed point ids per frame, number of genuine scene points)."""
+    w = write_features_workspace(out_dir, scene, n_frames, seed,
+                                 per_image_cameras=True,
+                                 focal_noise=focal_noise, descriptors=True,
+                                 distractors=distractors)
+    return w["names"], w["ids"], w["n_scene_points"]
 
 
 def tag_detections(m, centers, tag_length, scale, seed=0, noise_px=0.5):
