@@ -142,7 +142,26 @@ Phases, each reported on its own line:
      observation inside its image coloured; the corridor 96/96; the loop
      at least one loop pair; registered frames at least and ATE at most
      the JAX package's fewest and worst over its CPU draws on the same
-     bins (tests/image_draws.py; 2x their median printed beside).
+     bins (tests/image_draws.py; 2x their median printed beside);
+ 18. (a) the reference's headline comparison, as a user runs it:
+     tools.run_unordered_bench on tests/test_unordered_scale.py's street
+     tour (300 genuine + 1,700 distractor frames, seed 1, matching only),
+     retrieval top-25 against covisibility expansion on the same matcher,
+     both on the card.  Prints per arm the proposals, verified pairs,
+     precision, recall, wall seconds split into VLAD, host search and match
+     + verify, topstats launches and chunk shape, the peak device memory,
+     and the two ratios.  Gates: precision >= 0.95 in both arms,
+     covisibility proposals <= 0.33x and verified pairs >= 0.95x
+     retrieval's, each arm's proposals and verified pairs within 1% of the
+     JAX package's on the same bytes (CPU, recorded below), VLAD on CUDA,
+     topstats launched and never plain; the wall ratio is printed beside
+     the reference's 0.45 and the JAX package's CPU ratio, not gated.
+     (b) the instruments at their scripts' defaults, each printing its
+     JSON line: tools.profile_sift (pools 512, 1024, 2048), tools.profile_ba
+     (the LM step's split at 139,265 observations, launches per phase),
+     tools.dist_scaling (1, 2, 4, 8 shards of cuda:0; final costs within
+     1% of one another) and tools.dist_multiprocess --procs 1 (one NCCL
+     rank of 4 shards against one process; its parity record ok).
 
 Any failure exits non-zero.  Without a CUDA device it exits 1 at once.
 The last two lines of standard output are the kernel summary (JSON: per
@@ -284,6 +303,36 @@ TOOLS_SCENES = {
         sha256={"ftr.bin": "535b08ecbcb72eabd2a526c32c36d6e2623859242af2beae94461ed0aeae5ed9",
                 "fp.bin": "e078f2e1775435cc1a1539ad95a6b2cda5ae60d4130282befad6f897e9fdf30b"})),
 }
+
+# Phase 18(a): tests/test_unordered_scale.py's separation gate, at its size
+# (the street tour at 85% junk: 300 genuine + 1,700 distractor frames, seed
+# 1, matching only), through tools.run_unordered_bench.  Hard gates:
+# precision in both arms, covisibility proposals <= 0.33x and verified
+# pairs >= 0.95x retrieval's, and each arm's proposals and verified pairs
+# within 1% of the JAX package's on the same bytes.  The wall ratio is
+# printed beside the reference's 0.45 gate, not gated (no bounds on
+# seconds until the port has a benchmark).
+TOUR_ARGS = ["--scene", "tour", "--n_frames", "300", "--distractors", "1700",
+             "--seed", "1", "--matching_only"]
+TOUR_GATES = dict(precision=0.95, proposals=0.33, verified=0.95,
+                  jax_counts=0.01, wall_ref=0.45)
+# scripts/run_unordered_bench.py with these arguments and --cpu: the JAX
+# package on a CPU host (8 vCPUs, shared), on the bytes utils/synth writes
+# (held equal to scripts/synth_features.py's in tests/test_torch_tools.py):
+# 4,475 ground-truth pairs; retrieval 42,779 proposed, 4,057 verified,
+# 468.3 s; covisibility 11,904 proposed, 4,056 verified, 171.7 s (0.3667x);
+# precision 0.9808 in both.  Its r5 run (docs/benchmark.md:500, CPU, 2
+# vCPUs) proposed 42,872 and 11,722 pairs and verified 3,833 and 3,831, in
+# 659.8 and 232.2 s (0.35x).
+TOUR_JAX = dict(
+    retrieval=dict(pairs_proposed=42779, verified_pairs=4057, wall_s=468.3),
+    covisibility=dict(pairs_proposed=11904, verified_pairs=4056,
+                      wall_s=171.7))
+# Phase 18(b): the instruments at their scripts' defaults (profile_sift:
+# pools 512, 1024, 2048, 4 reps; profile_ba: 200 cameras, 20,000 points, 30
+# iterations; dist_scaling: 1, 2, 4, 8 shards of cuda:0; dist_multiprocess:
+# one NCCL rank of 4 shards), gated on dist_scaling's and
+# dist_multiprocess's 1% cost parity.
 
 
 def fail(msg):
@@ -1609,6 +1658,135 @@ def tools_phase(work, TM):
     return launches
 
 
+def tour_phase(work, TM):
+    """Phase 18(a): tools.run_unordered_bench on the street tour at the
+    reference's gate size, both arms on the card, and its gates.  Returns
+    ({arm: topstats launches}, the matcher's chunk size N = M)."""
+    import contextlib
+
+    from xrsfm_tpu_torch.feature import retrieval as RET
+    from xrsfm_tpu_torch.tools import run_unordered_bench as TUB
+    from xrsfm_tpu_torch.utils import io_features as IOF
+
+    tag = "[phase 18] tour"
+    wd = os.path.join(work, "tour")
+    TM.reset_launch_counts()
+    RET.reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    tee = _Tee(sys.stdout)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(tee):
+        res = TUB.main(TOUR_ARGS + ["--workdir", wd, "--device", "cuda"])
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    # pairs whose matches reached RANSAC, by arm: match_and_verify_pairs'
+    # "verified X/Y candidate pairs" lines, each arm closed by its
+    # "[matching] <arm>: N verified pairs" line
+    ransac, n = {}, 0
+    for line in tee.text().splitlines():
+        m = re.match(r"\[matching\] verified \d+/(\d+) candidate pairs", line)
+        if m:
+            n += int(m.group(1))
+        m = re.match(r"\[matching\] (\w+): \d+ verified pairs", line)
+        if m:
+            ransac[m.group(1)], n = n, 0
+    lc, vlad = dict(TM.LAUNCHES), dict(RET.COUNTS)
+    arms = {k: sum(a["topstats_launches"][k]
+                   for a in res["matching"].values()) for k in lc}
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    feats = IOF.read_features(os.path.join(wd, "ws", "ftr.bin"))
+    n_kp = [len(f.keypoints) for f in feats]
+    chunk = IOF.bucket(max(n_kp), lo=256)
+    mm = res["matching"]
+    ret, cov = mm["retrieval"], mm["covisibility"]
+    print(f"{tag}: {res['frames']} + {res['distractors']} frames, "
+          f"{res['gt_pairs']} ground-truth covisible pairs, keypoints per "
+          f"frame {min(n_kp)}..{max(n_kp)}; {total:.1f} s in all, "
+          f"{res['workspace_s']:.1f} s of it the workspace and the ground "
+          f"truth on the host; peak device memory "
+          f"{peak:.0f} MiB; VLAD calls {json.dumps(vlad)}", flush=True)
+    for arm, a in mm.items():
+        j = TOUR_JAX[arm]
+        print(f"{tag} {arm}: proposed {a['pairs_proposed']} (JAX "
+              f"{j['pairs_proposed']}), verified {a['verified_pairs']} (JAX "
+              f"{j['verified_pairs']}), precision {a['precision']:.4f}, "
+              f"recall {a['recall']:.4f}; pairs that reached RANSAC "
+              f"{ransac.get(arm)}; wall {a['wall_s']:.1f} s: VLAD "
+              f"{a['retrieval_s']:.3f}, host search {a['search_s']:.3f}, "
+              f"match + verify {a['match_s']:.3f} s; topstats launches "
+              f"{a['topstats_launches']['topstats_cuda']} (plain "
+              f"{a['topstats_launches']['topstats_plain']}) at chunk shape "
+              f"(16, {chunk}, {chunk})", flush=True)
+    p_ratio = cov["pairs_proposed"] / max(ret["pairs_proposed"], 1)
+    w_ratio = cov["wall_s"] / max(ret["wall_s"], 1e-9)
+    j_ratio = (TOUR_JAX["covisibility"]["wall_s"]
+               / TOUR_JAX["retrieval"]["wall_s"])
+    print(f"{tag}: covisibility / retrieval: proposals {p_ratio:.4f} (gate "
+          f"<= {TOUR_GATES['proposals']}), verified "
+          f"{cov['verified_pairs'] / max(ret['verified_pairs'], 1):.4f} "
+          f"(gate >= {TOUR_GATES['verified']}); wall {w_ratio:.4f}, not "
+          f"gated: the reference's gate {TOUR_GATES['wall_ref']}, the JAX "
+          f"package on a CPU {j_ratio:.4f} (r5: 0.35)", flush=True)
+    for arm, a in mm.items():
+        if a["precision"] < TOUR_GATES["precision"]:
+            fail(f"tour {arm}: precision {a['precision']}")
+        if (a["topstats_launches"]["topstats_cuda"] <= 0
+                or a["topstats_launches"]["topstats_plain"]):
+            fail(f"tour {arm}: topstats launches {a['topstats_launches']}")
+        for k in ("pairs_proposed", "verified_pairs"):
+            ref = TOUR_JAX[arm][k]
+            if abs(a[k] - ref) > TOUR_GATES["jax_counts"] * ref:
+                fail(f"tour {arm}: {k} {a[k]}, the JAX package's {ref}")
+    if p_ratio > TOUR_GATES["proposals"]:
+        fail(f"tour: proposal ratio {p_ratio:.4f}")
+    if cov["verified_pairs"] < TOUR_GATES["verified"] * ret["verified_pairs"]:
+        fail(f"tour: verified {cov['verified_pairs']} against "
+             f"{ret['verified_pairs']}")
+    if vlad["vlad_cuda"] != 2 or vlad["vlad_cpu"]:
+        fail(f"tour: retrieval counts {vlad}")
+    if arms != lc:
+        fail(f"tour: launches {lc}, the arms' sum {arms}")
+    print(f"{tag}: gates passed", flush=True)
+    return ({arm: a["topstats_launches"]["topstats_cuda"]
+             for arm, a in mm.items()}, chunk)
+
+
+def instruments_phase(work):
+    """Phase 18(b): the profiling and scaling tools at their scripts'
+    defaults on the card; each prints its JSON line.  Gates the cost
+    parity of dist_scaling's shard counts and dist_multiprocess's
+    record."""
+    from xrsfm_tpu_torch.tools import dist_multiprocess, dist_scaling
+    from xrsfm_tpu_torch.tools import profile_ba, profile_sift
+
+    dev = ["--device", "cuda"]
+    secs = {}
+    t0 = time.perf_counter()
+    profile_sift.main(dev)
+    secs["profile_sift"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    profile_ba.main(dev)
+    secs["profile_ba"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sc = dist_scaling.main(dev)
+    secs["dist_scaling"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    try:
+        mp = dist_multiprocess.main(["--procs", "1", "--workdir", work,
+                                     "--timeout", "300"] + dev)
+    except SystemExit:
+        fail("dist_multiprocess: parity record not ok")
+    secs["dist_multiprocess"] = time.perf_counter() - t0
+    print("[phase 18] instruments' seconds " + json.dumps(
+        {k: round(v, 1) for k, v in secs.items()}), flush=True)
+    costs = [r["final_cost"] for r in sc.values()]
+    if max(costs) - min(costs) > DIST_PARITY * min(costs):
+        fail(f"dist_scaling: final costs {costs}")
+    if not mp["ok"]:
+        fail(f"dist_multiprocess: {mp}")
+    print("[phase 18] instruments: gates passed", flush=True)
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke run needs a GPU")
@@ -1663,10 +1841,11 @@ def main():
     print(f"[phase 3] topstats B={PHASE3_RAGGED[0]} N={PHASE3_RAGGED[1]} "
           f"M={PHASE3_RAGGED[2]} (ragged): bit-equal to plain", flush=True)
 
-    # phases 4-17: the matching stage, BA, the reconstruction stage, the
+    # phases 4-18: the matching stage, BA, the reconstruction stage, the
     # circuit with loop closure, the correction path, triangulation, the
     # unordered regime, ORB, snapshot/resume, metric scale, the CLI,
-    # several shards, the user scripts' twins
+    # several shards, the user scripts' twins, the street tour and the
+    # instruments
     scratch = os.path.dirname(build.BUILD_DIR)  # build/, git-ignored
     os.makedirs(scratch, exist_ok=True)
     work = tempfile.mkdtemp(prefix="chip_smoke_", dir=scratch)
@@ -1686,13 +1865,15 @@ def main():
         cli_phase(work, model)
         launches16 = parallel_phase(work, verified4)
         launches17 = tools_phase(work, TM)
+        launches18, k_18 = tour_phase(work, TM)
+        instruments_phase(work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
     k_main = IOF.bucket(max(counts), lo=256)
     k_11 = IOF.bucket(max(kps11), lo=256)
     k_17 = sorted({kk for _, kk in launches17.values()})
-    for kk in [k_main, k_11] + k_17:
+    for kk in [k_main, k_11] + k_17 + [k_18]:
         if (16, kk, kk) not in kstats:
             phase3(16, kk, kk)
     err = max([v["max_abs_err"] for v in kstats.values()]
@@ -1711,13 +1892,20 @@ def main():
               f"{k17['queued_ms']:.4f} ms queued, bound "
               f"{k17['bound_ms']:.5f} ms by {k17['bound_by']}, plain "
               f"{k17['plain_ms']:.4f} ms", flush=True)
+    k18 = kstats[(16, k_18, k_18)]
+    n18 = sum(launches18.values())
+    print(f"[summary] topstats at phase 18's tour chunk shape B=16 "
+          f"N=M={k_18}: {n18} launches ({json.dumps(launches18)}), "
+          f"{k18['ms']:.4f} ms as one launch, {k18['queued_ms']:.4f} ms "
+          f"queued, bound {k18['bound_ms']:.5f} ms by {k18['bound_by']}, "
+          f"plain {k18['plain_ms']:.4f} ms", flush=True)
     n17 = sum(n for n, _ in launches17.values())
     print(f"[summary] topstats launches: phase 4 "
           f"{launches['topstats_cuda']}, phase 11 "
           f"{launches11['topstats_cuda']}, phase 16 (sharded) {launches16}, "
-          f"phase 17 {n17}", flush=True)
-    print(f"[summary] kernel summary below: launches of phases 4, 11, 16 and "
-          f"17; "
+          f"phase 17 {n17}, phase 18 {n18}", flush=True)
+    print(f"[summary] kernel summary below: launches of phases 4, 11, 16, "
+          f"17 and 18; "
           f"times and bound at phase 4's chunk shape B=16 N=M={k_main}",
           flush=True)
     print(json.dumps({"kernels": [{
@@ -1726,7 +1914,7 @@ def main():
         "source": "xrsfm_tpu_torch/csrc/topstats.cu",
         "replaces": "xrsfm_tpu/ops/matching.py:33",
         "launches": (launches["topstats_cuda"] + launches11["topstats_cuda"]
-                     + launches16 + n17),
+                     + launches16 + n17 + n18),
         "max_abs_err": err,
         "ms": k["ms"],
         "queued_ms": k["queued_ms"],

@@ -293,6 +293,11 @@ TOOL_ARGS = {
     "run_test_data": ["ws"],
     "run_kitti": ["root", "ws"],
     "run_1dsfm": ["root", "ws"],
+    "run_unordered_bench": ["--workdir", "wd"],
+    "profile_sift": [],
+    "profile_ba": [],
+    "dist_scaling": [],
+    "dist_multiprocess": ["--workdir", "wd"],
 }
 
 
@@ -320,7 +325,7 @@ def test_tools_import_no_jax_cv2_or_scripts():
         "for m in mods: importlib.import_module(m)\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
         "('jax', 'jaxlib', 'xrsfm_tpu', 'cv2', 'scripts'))\n"
-        "assert len(mods) == 7, mods\n"
+        "assert len(mods) == 12, mods\n"
         "assert not bad, bad\n"
     )
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,

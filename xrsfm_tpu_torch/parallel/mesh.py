@@ -102,13 +102,15 @@ def make_mesh(n_devices: int, device="cuda", axis: str = "obs") -> Mesh:
 def initialize_distributed(init_method: Optional[str] = None,
                            num_processes: Optional[int] = None,
                            process_id: Optional[int] = None,
-                           device="cpu", timeout_s: float = 120.0):
+                           device="cuda", timeout_s: float = 120.0):
     """Join the default torch.distributed process group: NCCL when
-    `device` is CUDA (this process's card, made current), Gloo for the CPU.
+    `device` is CUDA (this process's card, made current; the default, and
+    a RuntimeError without a GPU), Gloo for the CPU, which callers name.
     A no-op for one process without an init_method (as the JAX package's
-    is without num_processes > 1); nothing on a machine announces a
-    cluster, so init_method ("tcp://host:port", "file:///path"), the
-    process count and this process's rank are given.  A collective that
+    is without num_processes > 1), which touches no device; nothing on a
+    machine announces a cluster, so init_method ("tcp://host:port",
+    "file:///path"), the process count and this process's rank are
+    given.  A collective that
     waits longer than timeout_s raises.  Returns (process count, rank)."""
     import torch.distributed as dist
 

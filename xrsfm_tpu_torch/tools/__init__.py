@@ -9,4 +9,12 @@ lines and a --device argument (default cuda; raises without a GPU):
   python -m xrsfm_tpu_torch.tools.pointcloud_color --image_dir D --bin_dir M
   python -m xrsfm_tpu_torch.tools.run_kitti <kitti_root> <workspace>
   python -m xrsfm_tpu_torch.tools.run_1dsfm <data_root> <workspace>
+
+and the measurement scripts, each printing one JSON line:
+
+  python -m xrsfm_tpu_torch.tools.run_unordered_bench [--scene tour]
+  python -m xrsfm_tpu_torch.tools.profile_sift
+  python -m xrsfm_tpu_torch.tools.profile_ba
+  python -m xrsfm_tpu_torch.tools.dist_scaling
+  python -m xrsfm_tpu_torch.tools.dist_multiprocess [--procs 2]
 """
