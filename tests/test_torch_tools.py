@@ -325,7 +325,7 @@ def test_tools_import_no_jax_cv2_or_scripts():
         "for m in mods: importlib.import_module(m)\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
         "('jax', 'jaxlib', 'xrsfm_tpu', 'cv2', 'scripts'))\n"
-        "assert len(mods) == 12, mods\n"
+        "assert len(mods) == 14, mods\n"
         "assert not bad, bad\n"
     )
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,

@@ -45,6 +45,7 @@ def test_port_unordered_matching_separation(tmp_path):
              timeout=7200)
     ret = r["matching"]["retrieval"]
     cov = r["matching"]["covisibility"]
+    print(json.dumps(r))  # the arms' splits, shown by pytest -rA
     for mtype, mm in (("retrieval", ret), ("covisibility", cov)):
         assert mm["precision"] >= 0.95, (mtype, mm)
     assert cov["pairs_proposed"] <= 0.33 * ret["pairs_proposed"], (cov, ret)

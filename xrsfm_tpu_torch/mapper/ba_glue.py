@@ -68,12 +68,15 @@ def build_problem(
     gauge_frames: Optional[Sequence[int]] = None,
     obs_frames: Optional[Sequence[int]] = None,
     freeze_tracks: Optional[np.ndarray] = None,
+    freeze_rotations: bool = False,
 ):
     """Returns (BAProblem, frames, tracks, n_obs), or (None, None, None, 0)
     without observations.  Frames outside opt_frames that observe shared
     tracks enter frozen, as the reference holds non-local frames in LBA
     (ba_solver.cc:358-391); obs_frames restricts which frames contribute
-    observations (KGBA: keyframes only, ba_solver.cc:640-678)."""
+    observations (KGBA: keyframes only, ba_solver.cc:640-678);
+    freeze_rotations freezes every rotation (fix_rot), so that a settling
+    solve keeps averaged rotations while translations and points re-fit."""
     frames, tracks, (row_f, row_t, row_p) = _collect(m, opt_frames, obs_frames)
     n_obs = len(row_f)
     if n_obs == 0:
@@ -138,6 +141,7 @@ def build_problem(
         cam_kam=cam_kam,
         fix_intri=fix_intri,
         tie_f=tie_f,
+        fix_rot=np.ones(nf, bool) if freeze_rotations else None,
     )
     return prob, frames, tracks, n_obs
 
@@ -154,6 +158,7 @@ def run_ba(
     obs_frames: Optional[Sequence[int]] = None,
     optimize_intrinsics: bool = False,
     freeze_tracks: Optional[np.ndarray] = None,
+    freeze_rotations: bool = False,
     mesh=None,
     *,
     device,
@@ -162,6 +167,9 @@ def run_ba(
     camera intrinsics (reference: GBA frees camera_param,
     ba_solver.cc:330-356; LBA pins it :389) and writes the refined
     cameras back through update_camera, which refreshes kps_norm.
+    freeze_rotations keeps every rotation: the map's quaternions are not
+    written back, so they stay bit for bit (the JAX package writes back
+    their float32 round trip).
 
     mesh (parallel.mesh.Mesh of more than one shard): solve through the
     observation-sharded LM of parallel/dist_ba instead, pose-only or
@@ -172,7 +180,7 @@ def run_ba(
     prob, frames, tracks, n_obs = build_problem(
         m, opt_frames, device, fix_all_poses=fix_all_poses,
         gauge_frames=gauge, obs_frames=obs_frames,
-        freeze_tracks=freeze_tracks,
+        freeze_tracks=freeze_tracks, freeze_rotations=freeze_rotations,
     )
     PROF["build"] += time.perf_counter() - t0
     PROF["calls"] += 1
@@ -196,7 +204,8 @@ def run_ba(
     t0 = time.perf_counter()
     upd = ~prob.fix_cam.cpu().numpy()
     fr = frames[upd]
-    m.q[fr] = q[upd] / np.linalg.norm(q[upd], axis=1, keepdims=True)
+    if not freeze_rotations:
+        m.q[fr] = q[upd] / np.linalg.norm(q[upd], axis=1, keepdims=True)
     m.t[fr] = t[upd]
     m.track_xyz[tracks] = pts
     if optimize_intrinsics:

@@ -149,14 +149,28 @@ def refine_poses_batch(q, t, uv, xyz, w, huber_delta, iters: int = 10):
 
 
 def essential_ransac(uv1, uv2, mask, thresholds, generators=None,
-                     sample_idx=None, num_hypotheses: int = 512):
+                     sample_idx=None, num_hypotheses: int = 512,
+                     use_5pt: bool = True):
     """Essential LO-RANSAC over B pairs: 5-point minimal hypotheses (up to
-    10 per sample, so num_hypotheses // 8 samples, at least 64) and an
-    8-point refit on the winner's inliers.  Returns (E [B, 3, 3], inliers
-    [B, N], num_inliers [B], success [B])."""
-    def estimate(sampled, sample_valid):
-        Es, valid = essential_5pt(*sampled, sample_valid)
-        return Es, valid & sample_valid.all(dim=-1, keepdim=True)
+    10 per sample, so num_hypotheses // 8 samples, at least 64), or with
+    use_5pt=False 8-point hypotheses (one model per sample,
+    num_hypotheses samples), and an 8-point refit on the winner's
+    inliers.  sample_idx is [B, samples, 5 or 8].  Returns (E [B, 3, 3],
+    inliers [B, N], num_inliers [B], success [B])."""
+    if use_5pt:
+        def estimate(sampled, sample_valid):
+            Es, valid = essential_5pt(*sampled, sample_valid)
+            return Es, valid & sample_valid.all(dim=-1, keepdim=True)
+
+        sample_size = 5
+        hypotheses = max(num_hypotheses // 8, 64)
+    else:
+        def estimate(sampled, sample_valid):
+            E, valid = epipolar.essential_8pt(*sampled, sample_valid)
+            return E[:, :, None], (valid & sample_valid.all(dim=-1))[..., None]
+
+        sample_size = 8
+        hypotheses = num_hypotheses
 
     def residual(E, data):
         x1, x2 = data
@@ -166,9 +180,9 @@ def essential_ransac(uv1, uv2, mask, thresholds, generators=None,
         return epipolar.essential_8pt(*data, inl)
 
     res = ransac.ransac(
-        (uv1, uv2), mask, estimate, residual, sample_size=5,
+        (uv1, uv2), mask, estimate, residual, sample_size=sample_size,
         threshold=_thresholds(thresholds, mask.shape[0], uv1),
-        num_hypotheses=max(num_hypotheses // 8, 64), refit_fn=refit,
+        num_hypotheses=hypotheses, refit_fn=refit,
         lo_iters=2, generators=generators, sample_idx=sample_idx,
     )
     return res.model, res.inliers, res.num_inliers, res.success

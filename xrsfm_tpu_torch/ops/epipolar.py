@@ -46,6 +46,12 @@ def sampson_error(F, x1, x2):
     return num / den.clamp_min(1e-12)
 
 
+def epipolar_residual(F, x1, x2):
+    """Symmetric squared epipolar line distance (COLMAP's F residual): the
+    squared Sampson distance."""
+    return sampson_error(F, x1, x2)
+
+
 def normalize_points(x, mask):
     """Hartley normalization: centroid 0, mean distance sqrt(2).
 

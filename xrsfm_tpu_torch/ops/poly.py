@@ -47,30 +47,39 @@ def poly_roots(coeffs: torch.Tensor, iters: int = 60):
     # substitute z = R * w: coefficient of w^(d-k) is c_k / R^k
     c = c / R ** torch.arange(d + 1, dtype=torch.float32, device=dev)
 
-    # initial guesses: powers of (0.4 + 0.9i) (inside/near the unit disk)
+    # initial guesses: powers of (0.4 + 0.9i) (inside/near the unit disk).
+    # The iteration holds the root index first, z [d, ...]: every operand
+    # below is then a contiguous block (the index last makes each op a
+    # strided pass of stride d, several times slower on a CPU), and each
+    # element sees the same operations as with the index last.
     k = torch.arange(d, device=dev)
     ang = torch.tensor(math.atan2(0.9, 0.4), dtype=torch.float32,
                        device=dev) * (k + 1)
     mag = torch.tensor(math.sqrt(0.4**2 + 0.9**2), dtype=torch.float32,
                        device=dev) ** ((k + 1) % 7 + 1)
-    zr = (mag * torch.cos(ang)).expand(c[..., 1:].shape)
-    zi = (mag * torch.sin(ang)).expand(c[..., 1:].shape)
-    eye = torch.eye(d, dtype=torch.float32, device=dev)
+    lead_shape = (d,) + (1,) * (c.dim() - 1)
+    zr = (mag * torch.cos(ang)).reshape(lead_shape).expand(
+        (d,) + c.shape[:-1])
+    zi = (mag * torch.sin(ang)).reshape(lead_shape).expand(
+        (d,) + c.shape[:-1])
+    eye = torch.eye(d, dtype=torch.float32, device=dev).reshape(
+        (d, d) + (1,) * (c.dim() - 1))
 
     for _ in range(iters):
         # denominator prod_{j != i} (z_i - z_j), with 1 on the diagonal
-        dr = zr[..., :, None] - zr[..., None, :] + eye
-        di = zi[..., :, None] - zi[..., None, :]
+        dr = zr[:, None] - zr[None, :] + eye
+        di = zi[:, None] - zi[None, :]
         denr, deni = torch.ones_like(zr), torch.zeros_like(zi)
         for j in range(d):
-            denr, deni = _cmul(denr, deni, dr[..., :, j], di[..., :, j])
+            denr, deni = _cmul(denr, deni, dr[:, j], di[:, j])
         # Horner evaluation of the monic polynomial at z
         pr, pi = torch.ones_like(zr), torch.zeros_like(zi)
         for i in range(1, d + 1):
             pr, pi = _cmul(pr, pi, zr, zi)
-            pr = pr + c[..., i][..., None]
+            pr = pr + c[..., i]
         qr, qi = _cdiv(pr, pi, denr, deni)
         zr, zi = zr - qr, zi - qi
+    zr, zi = zr.movedim(0, -1), zi.movedim(0, -1)
     return zr * R, zi * R  # undo the variable scaling
 
 

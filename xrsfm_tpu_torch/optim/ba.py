@@ -15,7 +15,9 @@ LBA :523-592).
     guard (constant residual (12, 12), cost_factor_ceres.h:29-32) becomes
     zero IRLS weight and a constant cost.
   * Gauge freedom is fixed by masking Jacobian columns: frozen cameras,
-    frozen translations (ba_solver.cc:610-614) and frozen points.
+    frozen translations (ba_solver.cc:610-614) and frozen points; frozen
+    rotations (fix_rot) let a settling solve keep averaged rotations
+    while translations and points re-fit.
   * Intrinsics refinement (optimize_intrinsics; reference: GBA frees
     camera_param per physical camera, ba_solver.cc:330-356) widens the
     camera tangent from 6 to 14: pose, then log fx, log fy, cx, cy, k1,
@@ -84,12 +86,15 @@ class BAProblem:
     cam_kam: torch.Tensor | None = None
     fix_intri: torch.Tensor | None = None
     tie_f: torch.Tensor | None = None
+    # [C] bool, freeze the rotation only (None: no rotation frozen beyond
+    # fix_cam)
+    fix_rot: torch.Tensor | None = None
 
     @classmethod
     def from_numpy(cls, device, **arrays):
         """Problem on `device` from numpy arrays named as the fields:
         floats to float32, indices to int64, flags to bool; the
-        intrinsics fields may be left out."""
+        intrinsics fields and fix_rot may be left out."""
         out = {}
         for f in dataclasses.fields(cls):
             if arrays.get(f.name) is None and f.default is None:
@@ -285,12 +290,17 @@ def _colmask_intri(p: BAProblem):
     return im
 
 
+def _rot_frozen(p: BAProblem):
+    """[C] bool: cameras whose rotation stays as it is."""
+    return p.fix_cam if p.fix_rot is None else p.fix_cam | p.fix_rot
+
+
 def _cam_colmask(p: BAProblem, with_intri: bool):
     """Per-camera tangent mask [C, 6] (or [C, 14]): rotation columns free
-    unless the camera is frozen, translation columns also frozen by
-    fix_trans."""
+    unless the camera or its rotation is frozen (fix_cam, fix_rot),
+    translation columns free unless fix_cam or fix_trans."""
     dt = p.cam_q.dtype
-    cam_free = (~p.fix_cam).to(dt)
+    cam_free = (~_rot_frozen(p)).to(dt)
     trans_free = (~(p.fix_cam | p.fix_trans)).to(dt)
     m = torch.cat([cam_free[:, None].expand(-1, 3),
                    trans_free[:, None].expand(-1, 3)], dim=1)
@@ -505,15 +515,16 @@ def _schur_solve(ps, U, V, W, bc, bp, lam, cg_iters, cg_tol,
 
 
 def _apply_step(p: BAProblem, dx_c, dx_p) -> BAProblem:
-    """Retract the free parameters; frozen ones are kept bit for bit (the
-    JAX package re-normalizes frozen quaternions, a last-bit change).
+    """Retract the free parameters; frozen ones (fix_cam, fix_rot,
+    fix_trans, fix_pt) are kept bit for bit (the JAX package re-normalizes
+    frozen quaternions, a last-bit change).
     With intrinsics: f exp(dlog f) per axis (both from column 0 when
     tied), additive cx, cy, k1, k2, p1, p2."""
     q2, t2 = G.pose_retract(p.cam_q, p.cam_t, dx_c[:, :6])
     fix_c = p.fix_cam[:, None]
     out = dataclasses.replace(
         p,
-        cam_q=torch.where(fix_c, p.cam_q, q2),
+        cam_q=torch.where(_rot_frozen(p)[:, None], p.cam_q, q2),
         cam_t=torch.where(fix_c | p.fix_trans[:, None], p.cam_t, t2),
         points=torch.where(p.fix_pt[:, None], p.points, p.points + dx_p),
     )

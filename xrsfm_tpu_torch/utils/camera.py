@@ -12,6 +12,8 @@ broadcast against the points' batch shape.
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
@@ -93,6 +95,43 @@ def raw_params(model_id: int, canon) -> np.ndarray:
     if model_id == OPENCV:
         return c[:8].copy()
     raise ValueError(f"unsupported camera model id {model_id}")
+
+
+@dataclasses.dataclass(frozen=True)
+class Cameras:
+    """A batch of cameras as tensors: canonical params [N, 8] (fx, fy, cx,
+    cy, k1, k2, p1, p2) float32, and model id, width and height [N] int32
+    (width and height 0 where unknown; the model id is kept for I/O)."""
+
+    params: torch.Tensor
+    model_id: torch.Tensor
+    width: torch.Tensor
+    height: torch.Tensor
+
+    @property
+    def focal(self) -> torch.Tensor:
+        return 0.5 * (self.params[..., 0] + self.params[..., 1])
+
+
+def make_cameras(model_ids, params_list, widths=None, heights=None, *,
+                 device) -> Cameras:
+    """Cameras on `device` from raw COLMAP param vectors (canonicalized in
+    float64 on the host, stored in float32)."""
+    n = len(model_ids)
+    canon = np.zeros((n, 8), np.float64)
+    for i, (m, p) in enumerate(zip(model_ids, params_list)):
+        canon[i] = canonicalize_params(int(m), p)
+
+    def ints(a):
+        a = np.zeros(n, np.int32) if a is None else np.asarray(a, np.int32)
+        return torch.from_numpy(a).to(device)
+
+    return Cameras(
+        params=torch.from_numpy(canon.astype(np.float32)).to(device),
+        model_id=ints(model_ids),
+        width=ints(widths),
+        height=ints(heights),
+    )
 
 
 def distort(params, uv):

@@ -655,14 +655,17 @@ def _pairs_from_shared_points(frames_obs, cand, rng, min_shared,
     return pairs
 
 
+SEQ_WINDOW = 5  # the circuit's sequential pairs: each frame's next 5
+
+
 def build_kitti_pairs(frames_obs, n_frames, rng, loop_centers, min_shared=30,
                       contamination=0.03):
-    """Verified pairs of the circuit: every frame with its next 5, plus up
-    to 3 loop-closure partners within 4 units that are more than 50 frames
-    apart (every second frame)."""
+    """Verified pairs of the circuit: every frame with its next SEQ_WINDOW,
+    plus up to 3 loop-closure partners within 4 units that are more than 50
+    frames apart (every second frame)."""
     cand = set()
     for i in range(n_frames):
-        for k in range(1, 6):
+        for k in range(1, SEQ_WINDOW + 1):
             if i + k < n_frames:
                 cand.add((i, i + k))
     c = loop_centers
