@@ -175,6 +175,21 @@ Phases, each reported on its own line:
      least 60 matches measured and finite, the median per-edge rotation
      error of the raw and of the clean match lists each at most 1.25x the
      JAX package's on the same bytes (CPU).
+ 20. the benchmark drivers' twins as a user runs them: (a)
+     tools.bench.run_benchmarks("cuda") prints bench.py's JSON line (LM
+     iterations/s and cost at 139,265 and 1,114,041 observations, matcher
+     pairs/s at 4,096 features, SIFT images/s at 480x640, the CPU anchor
+     at 2 threads); one LM step's device operations and host fetches
+     (utils/profiling.dispatch_counter).  Gates: the 140k cost in phase
+     6's band, the 1.1M cost finite and within 1% of the port's solve_ba
+     at bench.py's schedule, topstats launched and never plain, the card's
+     SIFT keypoints within 2% of the CPU's on the same image; bench.py's
+     TPU figures printed beside, not gated.  (b) tools.e2e_bench on the
+     96-frame corridor, --steady and then --count_dispatches: stage
+     seconds, 96/96 registered and ATE at most phase 17's limit in both,
+     topstats launched and never plain, and in the counted run device
+     operations and host fetches > 0 in each stage, printed with the 15
+     kernels launched most often.
 
 Any failure exits non-zero.  Without a CUDA device it exits 1 at once.
 The last two lines of standard output are the kernel summary (JSON: per
@@ -362,6 +377,17 @@ CIRCUIT_JAX = dict(registered=249, ate_pct=0.9465448215957029,
 # draws (JAX 0.4916 and 0.6356 clean under two key sets).
 EDGE_JAX = dict(pairs=1199, raw_med_deg=0.0457, clean_med_deg=0.0263)
 EDGE_MAX_RATIO = 1.25
+# Phase 20: the benchmark drivers' twins.  bench.py's own figures on a TPU
+# (BENCH_r05.json: the JAX package's bf16 camera-major solver and its SIFT),
+# printed beside the port's, not gated: the port follows the float32 COO
+# solver.  The 1.1M-observation cost is held to the port's own solve_ba at
+# bench.py's schedule, the card's SIFT count to the port's CPU count on
+# the same image.
+BENCH_JAX = dict(ba_large_final_cost=436527.41, sift_keypoints_per_image=1237)
+BENCH_LARGE_OPTS = dict(max_iters=12, cg_iters=2, cg_tol=1e-2, huber_px=4.0,
+                        lam_init=1e-4)
+BENCH_LARGE_PARITY = 0.01
+SIFT_KP_TOL = 0.02
 
 
 def fail(msg):
@@ -1953,6 +1979,121 @@ def circuit_tools_phase(work, smi):
     print(f"{tag} seconds {json.dumps(secs)}; gates passed", flush=True)
 
 
+
+def bench_phase(work, TM, smi):
+    """Phase 20: tools.bench.run_benchmarks and tools.e2e_bench on the
+    96-frame corridor (--steady, then --count_dispatches), as a user runs
+    them, and their gates.  Returns {run: (topstats launches, chunk size
+    N = M)}."""
+    from xrsfm_tpu_torch.device import full_precision
+    from xrsfm_tpu_torch.ops.sift import SiftExtractor
+    from xrsfm_tpu_torch.optim import ba
+    from xrsfm_tpu_torch.tools import bench, e2e_bench
+    from xrsfm_tpu_torch.tools.profile_sift import bench_image
+    from xrsfm_tpu_torch.utils import io_features as IOF
+    from xrsfm_tpu_torch.utils import synth
+    from xrsfm_tpu_torch.utils.profiling import dispatch_counter
+
+    tag = "[phase 20]"
+    secs = {}
+    t_phase = t0 = time.perf_counter()
+    TM.reset_launch_counts()
+    res = bench.run_benchmarks("cuda")
+    torch.cuda.synchronize()
+    lc = dict(TM.LAUNCHES)
+    secs["bench"] = time.perf_counter() - t0
+    sec = res["secondary"]
+
+    # (a) what the gates compare with: one LM step's device operations and
+    # host fetches at 139,265 observations, solve_ba at 1.1M, SIFT on the
+    # CPU
+    t0 = time.perf_counter()
+    p = ba.BAProblem.from_numpy("cuda", **synth.ba_problem(**BA_SIZES["small"]))
+    lam = torch.tensor(bench.LAM0, dtype=torch.float32, device="cuda")
+    with full_precision():
+        bench.lm_step(p, lam, 2)  # warm-up
+        with dispatch_counter("cuda") as step:
+            bench.lm_step(p, lam, 2)
+    large = ba.BAProblem.from_numpy("cuda",
+                                    **synth.ba_problem(**BA_SIZES["large"]))
+    _, info = ba.solve_ba(large, ba.BAOptions(**BENCH_LARGE_OPTS))
+    del large
+    img = bench_image(480, 640)
+    n_cpu = len(SiftExtractor(bench.BENCH_SIFT, device="cpu").extract_batch(
+        [img], batch=1)[0][0])
+    secs["references"] = time.perf_counter() - t0
+    cost_l, ref_l = sec["ba_large_final_cost"], info["final_cost"]
+    n_kp = sec["sift_keypoints_per_image"]
+    print(f"{tag} bench ({smi}): {res['value']} LM iterations/s at "
+          f"{sec['ba_num_obs']} observations, cost {sec['ba_final_cost']} "
+          f"(band {BA_COST_BAND}); one LM step {step['dispatches']} device "
+          f"operations, {step['fetches']} host fetches; "
+          f"{sec['ba_large_iters_per_s']} at {sec['ba_large_num_obs']}, cost "
+          f"{cost_l} against solve_ba's {ref_l:.2f} in {info['iters']} "
+          f"iterations (limit {BENCH_LARGE_PARITY:.0%}; the JAX package's "
+          f"bf16 ELL solver on a TPU, not gated: "
+          f"{BENCH_JAX['ba_large_final_cost']}); matcher "
+          f"{sec['match_pairs_per_s_4096feat']} pairs/s, topstats launches "
+          f"{lc['topstats_cuda']} (plain {lc['topstats_plain']}); SIFT "
+          f"{sec['sift_images_per_s_480p']} images/s, {n_kp} keypoints "
+          f"against {n_cpu} on the CPU (limit {SIFT_KP_TOL:.0%}; the JAX "
+          f"package on a TPU, not gated: "
+          f"{BENCH_JAX['sift_keypoints_per_image']}); CPU anchor "
+          f"{sec['cpu_anchor_iters_per_s']} LM iterations/s "
+          f"({sec['baseline_kind']}), vs_baseline {res['vs_baseline']}",
+          flush=True)
+    if not BA_COST_BAND[0] <= sec["ba_final_cost"] <= BA_COST_BAND[1]:
+        fail(f"bench: BA final cost {sec['ba_final_cost']} outside "
+             f"{BA_COST_BAND}")
+    if not (np.isfinite(cost_l)
+            and abs(cost_l - ref_l) <= BENCH_LARGE_PARITY * ref_l):
+        fail(f"bench: 1.1M cost {cost_l}, solve_ba {ref_l}")
+    if lc["topstats_cuda"] <= 0 or lc["topstats_plain"]:
+        fail(f"bench: topstats launches {lc}")
+    if not abs(n_kp - n_cpu) <= SIFT_KP_TOL * n_cpu:
+        fail(f"bench: {n_kp} SIFT keypoints on the card, {n_cpu} on the CPU")
+
+    # (b) the corridor, steady and then counted
+    limit = max(TOOLS_SCENES["corridor"]["jax"]["ate_pct"])
+    n = TOOLS_SCENES["corridor"]["n_cams"]
+    launches = {"bench": (lc["topstats_cuda"], 4096)}
+    for mode in ("--steady", "--count_dispatches"):
+        TM.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = e2e_bench.main(["--workdir", os.path.join(work, "e2e"),
+                              "--n_images", str(n), mode, "--device", "cuda"])
+        torch.cuda.synchronize()
+        secs[mode[2:]] = time.perf_counter() - t0
+        lc = dict(TM.LAUNCHES)
+        feats = IOF.read_features(os.path.join(work, "e2e", "bins", "ftr.bin"))
+        launches[mode[2:]] = (lc["topstats_cuda"], IOF.bucket(
+            max(len(f.keypoints) for f in feats), lo=256))
+        print(f"{tag} e2e_bench {mode} ({smi}): extract {out['extract_s']}, "
+              f"match {out['match_s']}, reconstruct {out['reconstruct_s']} s "
+              f"({out['frames_per_s']} frames/s); {out['registered']}/{n} "
+              f"registered, ATE {out['ate_pct_span']}% (limit {limit}%); "
+              f"topstats launches {lc['topstats_cuda']} (plain "
+              f"{lc['topstats_plain']})", flush=True)
+        if out["registered"] != n:
+            fail(f"e2e_bench {mode}: {out['registered']}/{n} registered")
+        if not out["ate_pct_span"] <= limit:
+            fail(f"e2e_bench {mode}: ATE {out['ate_pct_span']}% above "
+                 f"{limit}%")
+        if lc["topstats_cuda"] <= 0 or lc["topstats_plain"]:
+            fail(f"e2e_bench {mode}: topstats launches {lc}")
+    dc = out["dispatch_counts"]
+    print(f"{tag} per stage (counted run): {json.dumps(dc)}; most launched: "
+          f"{json.dumps(out['dispatch_top'])}", flush=True)
+    for stage, c in dc.items():
+        if not (c["dispatches"] > 0 and c["fetches"] > 0):
+            fail(f"e2e_bench: {stage} counts {c}")
+    secs = {k: round(v, 1) for k, v in secs.items()}
+    print(f"{tag} seconds {json.dumps(secs)}, "
+          f"{time.perf_counter() - t_phase:.1f} in all; gates passed",
+          flush=True)
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke run needs a GPU")
@@ -2007,11 +2148,11 @@ def main():
     print(f"[phase 3] topstats B={PHASE3_RAGGED[0]} N={PHASE3_RAGGED[1]} "
           f"M={PHASE3_RAGGED[2]} (ragged): bit-equal to plain", flush=True)
 
-    # phases 4-19: the matching stage, BA, the reconstruction stage, the
+    # phases 4-20: the matching stage, BA, the reconstruction stage, the
     # circuit with loop closure, the correction path, triangulation, the
     # unordered regime, ORB, snapshot/resume, metric scale, the CLI,
     # several shards, the user scripts' twins, the street tour, the
-    # instruments and the circuit diagnostics
+    # instruments, the circuit diagnostics and the benchmark drivers
     scratch = os.path.dirname(build.BUILD_DIR)  # build/, git-ignored
     os.makedirs(scratch, exist_ok=True)
     work = tempfile.mkdtemp(prefix="chip_smoke_", dir=scratch)
@@ -2034,13 +2175,15 @@ def main():
         launches18, k_18 = tour_phase(work, TM)
         instruments_phase(work)
         circuit_tools_phase(work, smi)
+        launches20 = bench_phase(work, TM, smi)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
     k_main = IOF.bucket(max(counts), lo=256)
     k_11 = IOF.bucket(max(kps11), lo=256)
     k_17 = sorted({kk for _, kk in launches17.values()})
-    for kk in [k_main, k_11] + k_17 + [k_18]:
+    k_20 = sorted({kk for _, kk in launches20.values()})
+    for kk in [k_main, k_11] + k_17 + [k_18] + k_20:
         if (16, kk, kk) not in kstats:
             phase3(16, kk, kk)
     err = max([v["max_abs_err"] for v in kstats.values()]
@@ -2066,13 +2209,21 @@ def main():
           f"{k18['ms']:.4f} ms as one launch, {k18['queued_ms']:.4f} ms "
           f"queued, bound {k18['bound_ms']:.5f} ms by {k18['bound_by']}, "
           f"plain {k18['plain_ms']:.4f} ms", flush=True)
+    for run, (n20, kk) in launches20.items():
+        k20 = kstats[(16, kk, kk)]
+        print(f"[summary] topstats at phase 20's {run} chunk shape B=16 "
+              f"N=M={kk}: {n20} launches, {k20['ms']:.4f} ms as one launch, "
+              f"{k20['queued_ms']:.4f} ms queued, bound "
+              f"{k20['bound_ms']:.5f} ms by {k20['bound_by']}, plain "
+              f"{k20['plain_ms']:.4f} ms", flush=True)
     n17 = sum(n for n, _ in launches17.values())
+    n20 = sum(n for n, _ in launches20.values())
     print(f"[summary] topstats launches: phase 4 "
           f"{launches['topstats_cuda']}, phase 11 "
           f"{launches11['topstats_cuda']}, phase 16 (sharded) {launches16}, "
-          f"phase 17 {n17}, phase 18 {n18}", flush=True)
+          f"phase 17 {n17}, phase 18 {n18}, phase 20 {n20}", flush=True)
     print(f"[summary] kernel summary below: launches of phases 4, 11, 16, "
-          f"17 and 18; "
+          f"17, 18 and 20; "
           f"times and bound at phase 4's chunk shape B=16 N=M={k_main}",
           flush=True)
     print(json.dumps({"kernels": [{
@@ -2081,7 +2232,7 @@ def main():
         "source": "xrsfm_tpu_torch/csrc/topstats.cu",
         "replaces": "xrsfm_tpu/ops/matching.py:33",
         "launches": (launches["topstats_cuda"] + launches11["topstats_cuda"]
-                     + launches16 + n17 + n18),
+                     + launches16 + n17 + n18 + n20),
         "max_abs_err": err,
         "ms": k["ms"],
         "queued_ms": k["queued_ms"],

@@ -621,3 +621,22 @@ def test_one_rank_nccl_checksum_equals_one_process(cuda_device, tmp_path):
     finally:
         dist.destroy_process_group()
     assert cost == cost1 and ck(nccl) == ck(one)
+
+
+def test_dispatch_counter_counts_launches_and_fetches(cuda_device):
+    """utils/profiling.dispatch_counter on a block of known work: one
+    elementwise kernel, a reduction fetched by .item() (a kernel and a
+    device-to-host copy) and an explicit synchronise; the counter's own
+    synchronise and the profiler's are not counted."""
+    from xrsfm_tpu_torch.utils.profiling import dispatch_counter
+
+    x = torch.ones(1000, device=cuda_device)
+    torch.cuda.synchronize()
+    with dispatch_counter(cuda_device) as c:
+        y = x * 2
+        assert y.sum().item() == 2000.0
+        torch.cuda.synchronize()
+    assert c["dispatches"] == 3 and c["fetches"] == 2, c
+    assert sum(c["by_name"].values()) == 2
+    assert any(k.startswith("vectorized_elementwise_kernel")
+               for k in c["by_name"]), c["by_name"]

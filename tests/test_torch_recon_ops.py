@@ -331,6 +331,42 @@ def test_pnp_ransac_batch_with_jax_samples_matches_jax():
         assert np.mean(got[2][b][mask[b]] == exp[2][mask[b]]) >= 0.99
 
 
+def test_pnp_ransac_one_frame_matches_jax():
+    """The one-problem pnp_ransac (mapper/register.py's call in the JAX
+    package) on a frame of 100 of 128 points, 30% gross outliers: with
+    the JAX sampler's indices, the batch test's gates against JAX's
+    pnp_ransac and the batch form's result bit for bit; with the port's
+    own generator, success and the scene's pose within 0.05 deg."""
+    N, n = 128, 100
+    q0, _, X, u = _pnp_scene(420, n=n, noise=5e-4)
+    bad = np.random.default_rng(10).random(n) < 0.3
+    u[bad] = np.random.default_rng(11).uniform(-0.4, 0.4, (int(bad.sum()), 2))
+    uv = np.zeros((N, 2), np.float32)
+    xyz = np.zeros((N, 3), np.float32)
+    mask = np.zeros(N, bool)
+    uv[:n], xyz[:n], mask[:n] = u, X, True
+    th = np.float32((8.0 / 500.0) ** 2)
+    idx = _jax_samples([1234], mask[None], 256, 3)
+    got = [a.numpy() for a in TK.pnp_ransac(*_t(uv, xyz, mask), float(th),
+                                            sample_idx=idx[0])]
+    exp = [np.asarray(a) for a in JK.pnp_ransac(
+        jax.random.PRNGKey(1234), *_jx(uv, xyz, mask), th)]
+    batch = [a[0].numpy() for a in TK.pnp_ransac_batch(
+        *_t(uv[None], xyz[None], mask[None], th[None]), sample_idx=idx)]
+    assert [a.shape for a in got] == [a.shape for a in exp] \
+        == [(4,), (3,), (N,), (), ()]
+    for a, b in zip(got, batch):
+        np.testing.assert_array_equal(a, b)
+    assert bool(got[4]) == bool(exp[4]) is True
+    assert _rot_deg(got[0], exp[0]) < 1e-2
+    assert np.abs(got[1] - exp[1]).max() < 1e-3
+    assert abs(int(got[3]) - int(exp[3])) <= max(2, 0.01 * exp[3])
+    assert np.mean(got[2][mask] == exp[2][mask]) >= 0.99
+    q, _, _, _, ok = TK.pnp_ransac(*_t(uv, xyz, mask), float(th),
+                                   generator=torch.Generator().manual_seed(5))
+    assert bool(ok) and _rot_deg(q.numpy(), q0) < 0.05
+
+
 def test_init_probe_batch_with_jax_samples_matches_jax():
     """3 candidate pairs with outliers and ragged masks through the port's
     essential LO-RANSAC + pose/triangulation stats and JAX's vmapped probe

@@ -298,6 +298,8 @@ TOOL_ARGS = {
     "profile_ba": [],
     "dist_scaling": [],
     "dist_multiprocess": ["--workdir", "wd"],
+    "bench": [],
+    "e2e_bench": ["--workdir", "wd"],
 }
 
 
@@ -316,7 +318,7 @@ def test_tool_defaults_to_cuda_and_raises_without_gpu(tmp_path, tool):
 
 def test_tools_import_no_jax_cv2_or_scripts():
     """A fresh interpreter that imports every tool has no jax, xrsfm_tpu,
-    cv2 or scripts module loaded."""
+    cv2, scripts or bench module loaded."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import xrsfm_tpu_torch.tools as t\n"
@@ -324,8 +326,8 @@ def test_tools_import_no_jax_cv2_or_scripts():
         "'xrsfm_tpu_torch.tools.')]\n"
         "for m in mods: importlib.import_module(m)\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
-        "('jax', 'jaxlib', 'xrsfm_tpu', 'cv2', 'scripts'))\n"
-        "assert len(mods) == 14, mods\n"
+        "('jax', 'jaxlib', 'xrsfm_tpu', 'cv2', 'scripts', 'bench'))\n"
+        "assert len(mods) == 16, mods\n"
         "assert not bad, bad\n"
     )
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,

@@ -1,10 +1,11 @@
 """Batched device kernels of the incremental mapping loop (port of
 xrsfm_tpu/mapper/kernels.py).
 
-Every function takes tensors with a leading problem dimension B (the JAX
-package's vmap) and runs on their device:
+Every function but pnp_ransac takes tensors with a leading problem
+dimension B (the JAX package's vmap) and runs on their device:
   * pnp_ransac_batch: LO-RANSAC<P3P> registration with an EPnP / IPPE /
     LM-refine local stage (reference: SolvePnP_colmap, pnp.cc:253-272);
+    pnp_ransac is its one-problem form;
   * robust_triangulate: all C(V, 2) two-view hypotheses of each
     observation set scored at once, then a masked multiview refit
     (reference: EstimateTriangulation, triangulation.cc:167-197);
@@ -35,6 +36,20 @@ def _thresholds(th, B, like):
 # ---------------------------------------------------------------------------
 # registration
 # ---------------------------------------------------------------------------
+
+
+def pnp_ransac(uv, xyz, mask, threshold, generator=None, sample_idx=None,
+               num_hypotheses: int = 256):
+    """P3P LO-RANSAC of one frame: pnp_ransac_batch with B = 1.  uv [N, 2]
+    normalized, xyz [N, 3], mask [N], threshold (squared normalized);
+    generator: one torch.Generator, or sample_idx [num_hypotheses, 3].
+    Returns (q [4], t [3], inliers [N], num_inliers, success)."""
+    out = pnp_ransac_batch(
+        uv[None], xyz[None], mask[None], threshold,
+        generators=None if generator is None else [generator],
+        sample_idx=None if sample_idx is None else sample_idx[None],
+        num_hypotheses=num_hypotheses)
+    return tuple(a[0] for a in out)
 
 
 def pnp_ransac_batch(uv, xyz, mask, thresholds, generators=None,

@@ -12,6 +12,8 @@ lines and a --device argument (default cuda; raises without a GPU):
 
 and the measurement scripts, each printing one JSON line:
 
+  python -m xrsfm_tpu_torch.tools.bench                (the repo's bench.py)
+  python -m xrsfm_tpu_torch.tools.e2e_bench [--steady] [--count_dispatches]
   python -m xrsfm_tpu_torch.tools.run_unordered_bench [--scene tour]
   python -m xrsfm_tpu_torch.tools.profile_sift
   python -m xrsfm_tpu_torch.tools.profile_ba

@@ -47,6 +47,7 @@ from ..device import full_precision, resolve_device
 from ..ops import linalg
 from ..optim import ba
 from ..utils import synth
+from ..utils.profiling import dispatch_counter
 
 HUBER_PX = 4.0
 LAM0 = 1e-4
@@ -77,18 +78,10 @@ def _timer(dev):
 
 def count_launches(fn, dev):
     """Device operations (kernels, copies, fills) of one call of fn, from
-    torch.profiler; None on the CPU."""
-    if dev.type != "cuda":
-        return None
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize(dev)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) \
-            as prof:
+    torch.profiler (utils/profiling.dispatch_counter); None on the CPU."""
+    with dispatch_counter(dev) as c:
         fn()
-        torch.cuda.synchronize(dev)
-    return sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA)
+    return c["dispatches"]
 
 
 def main(argv=None):

@@ -27,11 +27,11 @@ from ..device import resolve_device
 from ..ops.sift import SiftExtractor, SiftOptions
 
 
-def bench_image(h, w):
+def bench_image(h, w, seed=0):
     """bench.py's SIFT input: uniform noise blurred by a 5x5 box, uint8."""
     from numpy.lib.stride_tricks import sliding_window_view
 
-    rng = np.random.default_rng(0)
+    rng = np.random.default_rng(seed)
     img = rng.integers(0, 255, size=(h, w)).astype(np.float32)
     k = np.ones((5, 5), np.float32) / 25.0
     sw = sliding_window_view(np.pad(img, 2, mode="edge"), (5, 5))
