@@ -5,11 +5,13 @@
 
 Phases, each reported on its own line:
   1. the card's name and power limit (nvidia-smi);
-  2. build of the CUDA kernel csrc/topstats.cu (matcher statistics: u8
-     wgmma dots on the tensor cores, tiles fed by TMA) with nvcc for
-     sm_90a, from the sources in this checkout; the built library's
-     registers and memory (cuobjdump -res-usage) and its tensor-core and
-     TMA instructions (cuobjdump -sass), which must be there;
+  2. build of the CUDA kernels csrc/topstats.cu (matcher statistics: u8
+     wgmma dots on the tensor cores, tiles fed by TMA), csrc/ba_cam_rows.cu
+     and csrc/ba_pt_rows.cu (the BA row blocks) with nvcc for sm_90a, from
+     the sources in this checkout, one nvcc each, started together; the
+     built libraries' registers and memory (cuobjdump -res-usage) and
+     topstats' tensor-core and TMA instructions (cuobjdump -sass), which
+     must be there;
   3. the kernel against its plain PyTorch version on the card, on seeded
      descriptors with planted matches, exact ties and ragged masks, at the
      matching stage's chunk shapes and at one ragged shape (3, 200, 184):
@@ -34,7 +36,10 @@ Phases, each reported on its own line:
      iterations, 2 PCG iterations, Huber 4 px, lambda0 1e-4), regenerated
      in numpy; its final cost must lie in 54,200..54,600; LM iterations/s
      and the solve's device time;
-  7. the reconstruction stage through its entry point,
+  7. the reconstruction stage through its entry point (every BA solve in
+     phases 7, 8 and 17 takes mapper/ba_glue's camera-major row layout:
+     row solves on CUDA, none on the CPU, both row kernels launched and
+     their plain versions never),
      pipelines.run_reconstruction.main(<phase-4 bins>, camera.txt, ...,
      device="cuda"): initialization succeeds, 48/48 frames register, the
      sim(3)-aligned ATE is at most the worst of the JAX package's eight
@@ -189,16 +194,40 @@ Phases, each reported on its own line:
      seconds, 96/96 registered and ATE at most phase 17's limit in both,
      topstats launched and never plain, and in the counted run device
      operations and host fetches > 0 in each stage, printed with the 15
-     kernels launched most often.
+     kernels launched most often.  tools.bench's LM step is bench.py's
+     camera-major row composition; its 1.1M cost is held to
+     solve_ba(p, opts, ell)'s.  run_benchmarks and then e2e_bench (its
+     counts zeroed after (a)'s references) each launch both row kernels,
+     and e2e_bench solves in the row layout on CUDA, never on the CPU.
+ 21. the camera-major row-native BA: (a) the row kernels ba_cam_rows
+     (camera rows: residuals, Jacobians, Huber weights, U, bc, √w Jc) and
+     ba_pt_rows (point rows: V, bp, the point gathers) against their plain
+     PyTorch versions at bench.py's 139,265 and 1,114,041 observations
+     with k1, k2, p1, p2 set, pose-only and with intrinsics (D = 14, every
+     other focal tied), each output within ROWS_TOLS of a block's or
+     slot's largest entry (float32 sums in other orders; the limits and
+     the errors they were set from are stated beside them), and against a
+     float64 run of the plain composition no worse than twice the float32
+     plain version; a second launch bit-equal; each kernel's wrapper timed
+     as one launch and queued, beside its plain version and its byte or
+     operation bound.  (b)
+     solve_ba(p, opts, ell) at 139,265 observations: final cost in phase
+     6's band and within 1e-3 of the COO solve_ba's; LM iterations/s and
+     device operations an LM step of both layouts.
 
 Any failure exits non-zero.  Without a CUDA device it exits 1 at once.
 The last two lines of standard output are the kernel summary (JSON: per
-kernel its launches on the main path, max_abs_err, ms (one launch between
-two events), queued_ms, plain_ms, bound_ms, bound_by and library_ms, null
-where no single PyTorch call computes the function) and
+kernel, topstats, ba_cam_rows and ba_pt_rows, its launches on the main
+path, max_abs_err, for the row kernels max_rel_err (the largest error
+phase 21 gates, relative to a block's or slot's largest entry: U's
+entries reach 10^6, so their absolute error says little), ms (one launch
+between two events), queued_ms,
+plain_ms, bound_ms, bound_by and library_ms, null where no single PyTorch
+call computes the function) and
 {"ok": true, "device": {...}}.
 """
 
+import dataclasses
 import json
 import os
 import re
@@ -217,6 +246,10 @@ N_IMAGES = 48
 WIDTH, HEIGHT, FOCAL = 640, 480, 562.5  # the arc scene's 512x384 f=450 FOV
 PHASE3_SHAPES = [(16, 2048, 2048), (16, 4096, 4096), (4, 8192, 8192)]
 PHASE3_RAGGED = (3, 200, 184)  # (pairs B, N, M): checked, not timed
+KERNEL_SOURCES = ["topstats.cu", "ba_cam_rows.cu", "ba_pt_rows.cu"]
+# the row kernels and the JAX functions they replace (XLA code, no Pallas)
+ROW_KERNELS = [("ba_cam_rows", "xrsfm_tpu/optim/ba.py:570"),
+               ("ba_pt_rows", "xrsfm_tpu/optim/ba.py:836")]
 # NVIDIA H100 SXM data sheet: dense int8 rate and memory rate at 700 W
 PEAK_INT8_OPS = 1979e12
 PEAK_BYTES = 3.35e12
@@ -388,6 +421,45 @@ BENCH_LARGE_OPTS = dict(max_iters=12, cg_iters=2, cg_tol=1e-2, huber_px=4.0,
                         lam_init=1e-4)
 BENCH_LARGE_PARITY = 0.01
 SIFT_KP_TOL = 0.02
+# Phase 21: the camera-major row-native BA.  The row kernels against their
+# plain versions, on bench.py's problems with ROWS_DISTORTION: both sum
+# float32 in other orders (the kernel a slot's rows in registers, then a
+# fixed tree over the block or warp; the plain version a batched product a
+# row, then segment_sum) and the kernel fuses multiply-adds.  Each output
+# is held within ROWS_TOLS of each block's or slot's largest entry (U, V
+# of a block; bc, bp of a camera's or point's vector; Jcw, Jpg, spg of a
+# slot); the cost relative.  Each limit sits a few times above the largest
+# error an H100 gave over the four cases of phase 21(a) (NVIDIA H100 80GB
+# HBM3, 700.00 W): U 6.9e-7 and V 6.6e-6 (held at 1e-4), Jcw
+# 9.5e-6 (1.1e-5 without distortion), Jpg 2.2e-7, cost 6.1e-8.  bc, bp and
+# spg are linear in the residual r = pix - uv, a difference of two numbers
+# of 10^2..10^3 px whose float32 rounding (6e-5 px at 1,000) falls
+# otherwise in the two versions, more where a point's terms cancel: bc
+# 5.0e-5, spg 6.1e-5, bp 4.6e-3.
+ROWS_TOLS = dict(cost=1e-6, U=1e-4, V=1e-4, Jcw=5e-5, Jpg=1e-5, bc=2e-4,
+                 bp=1e-2, spg=2.5e-4)
+# The same outputs in float64 (the plain composition run on float64 copies
+# of the inputs): the kernel's error against them may be at most
+# ROWS_F64_RATIO times the float32 plain version's, so a kernel-to-plain
+# gap is rounding that both versions share, not arithmetic the kernel gets
+# wrong (on an H100 the kernel's error over the plain one's: 0.47..1.2;
+# bp 1.5e-3 against the plain version's 3.1e-3 at 139,265 observations).
+# Rows that are zero in float64 must be zero in the kernel's output.
+ROWS_F64_RATIO = 2.0
+# k1, k2, p1, p2 of every camera in phase 21(a), so that each distortion
+# term of the residual and of the Jacobians is held (bench.py's problem
+# has none; its pixels stay undistorted, so residuals reach about 15 px
+# and the Huber weights take both branches)
+ROWS_DISTORTION = [-0.05, 0.01, 1e-3, -5e-4]
+ROWS_COST_PARITY = 1e-3  # the row solve's 140k cost against the COO solve's
+# NVIDIA H100 SXM data sheet: float32 rate outside the tensor cores
+PEAK_F32_OPS = 67e12
+# float operations a slot (a multiply-add counted as two), counted from
+# csrc/ba_cam_rows.cu at D = 6 and 14 and csrc/ba_pt_rows.cu
+CAM_ROWS_OPS = {6: 268, 14: 672}
+PT_ROWS_OPS = 210
+# ba_cam_rows / ba_pt_rows launches of the main-path phases (7, 8, 17, 20)
+ROW_LAUNCHES = {}
 
 
 def fail(msg):
@@ -442,11 +514,12 @@ def topstats_bound_ms(B, N, M):
         "operations" if t_ops >= t_bytes else "bytes")
 
 
-def inspect_library(path):
-    """What cuobjdump says of the built kernel library: its resource line
-    (registers, stack, shared and local memory) and the distinct
-    tensor-core (GMMA) and TMA (UTMALDG) instructions in its SASS.  Fails
-    if the dots are not on the tensor cores or the tiles not fed by TMA."""
+def inspect_library(path, tensor_cores=True):
+    """What cuobjdump says of a built kernel library: its resource lines
+    (registers, stack, shared and local memory) and, with tensor_cores
+    (topstats), the distinct tensor-core (GMMA) and TMA (UTMALDG)
+    instructions in its SASS; fails then if the dots are not on the
+    tensor cores or the tiles not fed by TMA."""
     exe = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
 
     def dump(flag):
@@ -455,6 +528,8 @@ def inspect_library(path):
 
     usage = [ln.strip() for ln in dump("-res-usage").splitlines()
              if "REG:" in ln]
+    if not tensor_cores:
+        return usage, {}
     found = {}
     for ln in dump("-sass").splitlines():
         m = re.search(r"\b(\w*GMMA[\w.]*|UTMALDG[\w.]*)", ln)
@@ -683,8 +758,12 @@ def solver_counts():
 
 
 def reset_solver_counts():
+    """Zero the solve counters and the row kernels' launch counts."""
+    from xrsfm_tpu_torch.optim import ba
+
     for mod in solver_counts()[0].values():
         mod.reset_counts()
+    ba.reset_launch_counts()
 
 
 def check_no_cpu_solve(tag, counts):
@@ -725,6 +804,7 @@ def recon_phase(work):
     if ba.COUNTS["solves_cuda"] == 0:
         fail(f"reconstruction: BA solve counts {ba.COUNTS}")
     check_no_cpu_solve("reconstruction", solver_counts()[1])
+    check_row_path("[phase 7]", solver_counts()[1])
 
     ims, pts, errs = read_model(model)
     gt = read_gt(os.path.join(work, "gt_poses.txt"))
@@ -784,6 +864,7 @@ def kitti_phase(work):
     }), flush=True)
     print(f"[phase 8] solver counts {json.dumps(counts)}", flush=True)
     check_no_cpu_solve("circuit", counts)
+    check_row_path("[phase 8]", counts)
     if counts["ba"]["solves_cuda"] == 0:
         fail("circuit: no BA solve on CUDA")
     if counts["pose_graph"]["solves_cuda"] < st.corrections:
@@ -1688,6 +1769,7 @@ def tools_phase(work, TM):
               f"draw); 2x the median, for information: "
               f"{2 * statistics.median(ref['ate_pct']):.5f}%", flush=True)
         check_no_cpu_solve(scene, counts)
+        check_row_path(tag, counts)
         if lc["topstats_cuda"] <= 0 or lc["topstats_plain"]:
             fail(f"{scene}: topstats launches {lc}")
         if counts["ba"]["solves_cuda"] == 0:
@@ -1998,9 +2080,11 @@ def bench_phase(work, TM, smi):
     secs = {}
     t_phase = t0 = time.perf_counter()
     TM.reset_launch_counts()
+    reset_solver_counts()
     res = bench.run_benchmarks("cuda")
     torch.cuda.synchronize()
     lc = dict(TM.LAUNCHES)
+    check_row_launches(f"{tag} bench", dict(ba.LAUNCHES))
     secs["bench"] = time.perf_counter() - t0
     sec = res["secondary"]
 
@@ -2008,16 +2092,17 @@ def bench_phase(work, TM, smi):
     # host fetches at 139,265 observations, solve_ba at 1.1M, SIFT on the
     # CPU
     t0 = time.perf_counter()
-    p = ba.BAProblem.from_numpy("cuda", **synth.ba_problem(**BA_SIZES["small"]))
+    p, ell = ba.pack_camera_major(ba.BAProblem.from_numpy(
+        "cuda", **synth.ba_problem(**BA_SIZES["small"])))
     lam = torch.tensor(bench.LAM0, dtype=torch.float32, device="cuda")
     with full_precision():
-        bench.lm_step(p, lam, 2)  # warm-up
+        bench.lm_step(p, ell, lam, 2)  # warm-up
         with dispatch_counter("cuda") as step:
-            bench.lm_step(p, lam, 2)
-    large = ba.BAProblem.from_numpy("cuda",
-                                    **synth.ba_problem(**BA_SIZES["large"]))
-    _, info = ba.solve_ba(large, ba.BAOptions(**BENCH_LARGE_OPTS))
-    del large
+            bench.lm_step(p, ell, lam, 2)
+    large, ell_l = ba.pack_camera_major(ba.BAProblem.from_numpy(
+        "cuda", **synth.ba_problem(**BA_SIZES["large"])))
+    _, info = ba.solve_ba(large, ba.BAOptions(**BENCH_LARGE_OPTS), ell_l)
+    del large, ell_l
     img = bench_image(480, 640)
     n_cpu = len(SiftExtractor(bench.BENCH_SIFT, device="cpu").extract_batch(
         [img], batch=1)[0][0])
@@ -2029,8 +2114,9 @@ def bench_phase(work, TM, smi):
           f"(band {BA_COST_BAND}); one LM step {step['dispatches']} device "
           f"operations, {step['fetches']} host fetches; "
           f"{sec['ba_large_iters_per_s']} at {sec['ba_large_num_obs']}, cost "
-          f"{cost_l} against solve_ba's {ref_l:.2f} in {info['iters']} "
-          f"iterations (limit {BENCH_LARGE_PARITY:.0%}; the JAX package's "
+          f"{cost_l} against solve_ba(p, opts, ell)'s {ref_l:.2f} in "
+          f"{info['iters']} iterations (limit {BENCH_LARGE_PARITY:.0%}; the "
+          f"JAX package's "
           f"bf16 ELL solver on a TPU, not gated: "
           f"{BENCH_JAX['ba_large_final_cost']}); matcher "
           f"{sec['match_pairs_per_s_4096feat']} pairs/s, topstats launches "
@@ -2053,10 +2139,12 @@ def bench_phase(work, TM, smi):
     if not abs(n_kp - n_cpu) <= SIFT_KP_TOL * n_cpu:
         fail(f"bench: {n_kp} SIFT keypoints on the card, {n_cpu} on the CPU")
 
-    # (b) the corridor, steady and then counted
+    # (b) the corridor, steady and then counted; its solves and row
+    # kernel launches are counted apart from (a)'s references
     limit = max(TOOLS_SCENES["corridor"]["jax"]["ate_pct"])
     n = TOOLS_SCENES["corridor"]["n_cams"]
     launches = {"bench": (lc["topstats_cuda"], 4096)}
+    reset_solver_counts()
     for mode in ("--steady", "--count_dispatches"):
         TM.reset_launch_counts()
         t0 = time.perf_counter()
@@ -2087,11 +2175,279 @@ def bench_phase(work, TM, smi):
     for stage, c in dc.items():
         if not (c["dispatches"] > 0 and c["fetches"] > 0):
             fail(f"e2e_bench: {stage} counts {c}")
+    check_row_path(f"{tag} e2e_bench", solver_counts()[1])
     secs = {k: round(v, 1) for k, v in secs.items()}
     print(f"{tag} seconds {json.dumps(secs)}, "
           f"{time.perf_counter() - t_phase:.1f} in all; gates passed",
           flush=True)
     return launches
+
+
+def _intri_fields(d):
+    """d with the 14-dof metadata: one intrinsic block, PINHOLE's frozen
+    entries, every other camera's focal tied."""
+    from xrsfm_tpu_torch.utils import camera as Cam
+
+    n = len(d["cam_q"])
+    free, _ = Cam.intri_free_mask(Cam.PINHOLE)
+    return dict(d, cam_kam=np.zeros(n, np.int64),
+                fix_intri=np.tile(~free[None], (n, 1)),
+                tie_f=np.arange(n) % 2 == 0)
+
+
+def _rel_err(got, exp, rows):
+    """Largest |got - exp| of a row over the row's largest |exp|, rows of
+    `rows` entries (a block or a slot); all-zero rows must match exactly."""
+    g = got.double().reshape(-1, rows)
+    e = exp.double().reshape(-1, rows)
+    diff = (g - e).abs().amax(dim=1)
+    norm = e.abs().amax(dim=1)
+    if bool((diff[norm == 0] > 0).any()):
+        return float("inf")
+    return float((diff / norm.clamp_min(1e-300)).max())
+
+
+def rows_bound_ms(kind, p, ell, D=6):
+    """Least time of one row-kernel call on this card, in ms, and what
+    bounds it: every input read once and every output written once at
+    3.35 TB/s, against the kernel's float operations over its slots
+    (padding included) at 67 TFLOP/s."""
+    C, P = p.cam_q.shape[0], p.points.shape[0]
+    cams = C * (16 + 12 + 32) + P * 12
+    if kind == "cam":
+        n = ell.cam.slots.numel()
+        nbytes = (cams + C * 4 + n * (8 + 4 + 4) + (C + 1) * 4
+                  + C * (D * D + D + 1) * 4 + n * 2 * D * 4)
+        ops = n * CAM_ROWS_OPS[D]
+    else:
+        n = ell.pt.slots.numel()
+        nbytes = (cams + n * (8 + 4 + 4) + (P + 1) * 4 + P * 12 * 4
+                  + n * (24 + 16))
+        ops = n * PT_ROWS_OPS
+    t_ops, t_bytes = ops / PEAK_F32_OPS, nbytes / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), (
+        "operations" if t_ops >= t_bytes else "bytes")
+
+
+def _as_f64(x):
+    """x (a BAProblem or EllIndex) with its floating tensors in float64."""
+    return dataclasses.replace(x, **{
+        f.name: getattr(x, f.name).double() for f in dataclasses.fields(x)
+        if torch.is_tensor(getattr(x, f.name))
+        and getattr(x, f.name).is_floating_point()})
+
+
+def rows_f64(p, ell, with_intri):
+    """The row kernels' plain compositions in float64 on the same inputs:
+    {output: tensor} of ba_cam_rows and ba_pt_rows."""
+    from xrsfm_tpu_torch.optim import ba
+
+    p, ell = _as_f64(p), _as_f64(ell)
+    r, z, Jc, Jp = ba._residuals_and_jacobians_rows(p, ell, with_intri)
+    _, w = ba._robust_cost_and_weight(
+        r, z, p.obs_w.reshape(ell.cam.slots.shape), 4.0)
+    U, bc, Jcw = ba._build_normal_blocks_ell(
+        p, ell, r, Jc, Jp, w, pt_dtype=torch.float64, cam_only=True,
+        return_cam_w=True)
+    V, bp, (Jpg, spg) = ba._build_pt_blocks_native(p, ell, 4.0,
+                                                   pt_dtype=torch.float64)
+    return dict(U=U, bc=bc, Jcw=Jcw, V=V, bp=bp, Jpg=Jpg, spg=spg)
+
+
+def rows_compare(tag, d, with_intri, timed):
+    """Phase 21(a) on one problem, with ROWS_DISTORTION: ba_cam_rows (at
+    D = 6 or 14) and ba_pt_rows against their plain versions, a second
+    launch bit-equal to the first, both beside a float64 run of the plain
+    composition; timed: each kernel's wrapper as one launch between events
+    and queued, its plain version, its bound.  Returns {kernel: stats}."""
+    from xrsfm_tpu_torch.optim import ba
+
+    D = 14 if with_intri else 6
+    d = dict(d, cam_intri=d["cam_intri"].copy())
+    d["cam_intri"][:, 4:] = ROWS_DISTORTION
+    p, ell = ba.pack_camera_major(ba.BAProblem.from_numpy(
+        "cuda", **(_intri_fields(d) if with_intri else d)))
+    Rc, Mc = ell.cam.slots.shape
+    Rp, Lw = ell.pt.slots.shape
+    width = dict(U=D * D, bc=D, Jcw=2 * D, V=9, bp=3, Jpg=6, spg=4)
+    ref = rows_f64(p, ell, with_intri)
+    out = {}
+    cases = (("ba_cam_rows", "cam",
+              lambda: ba.cam_rows_cuda(p, ell, 4.0, with_intri),
+              lambda: ba.cam_rows_plain(p, ell, 4.0, with_intri)),
+             ("ba_pt_rows", "pt", lambda: ba.pt_rows_cuda(p, ell, 4.0),
+              lambda: ba.pt_rows_plain(p, ell, 4.0)))
+    for name, kind, kern, plain in cases:
+        got = kern()
+        again = kern()
+        torch.cuda.synchronize()
+        exp = plain()
+        if kind == "cam":
+            (cost, U, bc, Jcw), (cost_e, U_e, bc_e, Jcw_e) = got, exp
+            g = dict(U=U, bc=bc, Jcw=Jcw)
+            e = dict(U=U_e, bc=bc_e, Jcw=Jcw_e)
+            errs = {"cost": abs(float(cost) - float(cost_e))
+                    / abs(float(cost_e))}
+            repeat = torch.equal(U, again[1]) and torch.equal(bc, again[2])
+        else:
+            (V, bp, (Jpg, spg)), (V_e, bp_e, (Jpg_e, spg_e)) = got, exp
+            g = dict(V=V, bp=bp, Jpg=Jpg, spg=spg)
+            e = dict(V=V_e, bp=bp_e, Jpg=Jpg_e, spg=spg_e)
+            errs = {}
+            repeat = torch.equal(V, again[0]) and torch.equal(bp, again[1])
+        errs.update({k: _rel_err(g[k], e[k], width[k]) for k in g})
+        # the float64 witness: each float32 version's error against it
+        f64 = {k: (_rel_err(g[k], ref[k], width[k]),
+                   _rel_err(e[k], ref[k], width[k])) for k in g}
+        st = {"max_abs_err": max(float((g[k].double() - e[k].double())
+                                       .abs().max()) for k in g),
+              "max_rel_err": max(errs.values()), "errs": errs, "f64": f64}
+        shape = (f"{Rc}x{Mc} camera rows ({Rc * Mc} slots)" if kind == "cam"
+                 else f"{Rp}x{Lw} point rows ({Rp * Lw} slots)")
+        rel = {k: float(f"{v:.3g}") for k, v in errs.items()}
+        wit = {k: [float(f"{a:.3g}"), float(f"{b:.3g}")]
+               for k, (a, b) in f64.items()}
+        print(f"[phase 21] {name} {tag}"
+              f"{' D=' + str(D) if kind == 'cam' else ''}, {shape}: "
+              f"relative errors {json.dumps(rel)} (limits "
+              f"{json.dumps({k: ROWS_TOLS[k] for k in rel})}), max abs "
+              f"{st['max_abs_err']:.4g}; against float64 [kernel, plain] "
+              f"(limit kernel <= {ROWS_F64_RATIO} plain) "
+              f"{json.dumps(wit)}; second launch "
+              f"{'bit-equal' if repeat else 'DIFFERS'}", flush=True)
+        if not repeat:
+            fail(f"{name} {tag}: a second launch gives other sums")
+        bad = {k: v for k, v in errs.items() if not v <= ROWS_TOLS[k]}
+        if bad:
+            fail(f"{name} {tag}: {bad} above {ROWS_TOLS}")
+        bad = {k: v for k, v in f64.items()
+               if not v[0] <= min(ROWS_F64_RATIO * v[1], float("inf"))}
+        if bad:
+            fail(f"{name} {tag}: against float64 {bad} (kernel, plain), "
+                 f"above {ROWS_F64_RATIO}x the plain version's")
+        if timed:
+            st["ms"] = time_ms(kern, 20)
+            st["queued_ms"] = queued_ms(kern)
+            st["plain_ms"] = time_ms(plain, 5)
+            st["bound_ms"], st["bound_by"] = rows_bound_ms(kind, p, ell, D)
+            print(f"[phase 21] {name} {tag}: {st['ms']:.4f} ms as one "
+                  f"launch, {st['queued_ms']:.4f} ms queued; bound "
+                  f"{st['bound_ms']:.5f} ms by {st['bound_by']} "
+                  f"({100 * st['bound_ms'] / st['queued_ms']:.1f}% of the "
+                  f"queued time); plain {st['plain_ms']:.4f} ms", flush=True)
+        out[name] = st
+        del got, again, exp, g, e
+    del p, ell, ref
+    torch.cuda.empty_cache()
+    return out
+
+
+def _lm_step_ops(solve):
+    """Device operations of one LM step of solve(max_iters): the
+    difference between two steps and one."""
+    from xrsfm_tpu_torch.utils.profiling import dispatch_counter
+
+    n = {}
+    for iters in (1, 2):
+        with dispatch_counter("cuda") as c:
+            solve(iters)
+        n[iters] = c["dispatches"]
+    return n[2] - n[1]
+
+
+def rows_solve(smi):
+    """Phase 21(b): solve_ba(p, opts, ell) at 139,265 observations against
+    the COO solve_ba: cost in phase 6's band and within ROWS_COST_PARITY,
+    LM iterations/s and device operations an LM step of both layouts."""
+    from xrsfm_tpu_torch.optim import ba
+    from xrsfm_tpu_torch.utils import synth
+
+    coo = ba.BAProblem.from_numpy("cuda", **synth.ba_problem(
+        **BA_SIZES["small"]))
+    rows, ell = ba.pack_camera_major(coo)
+    res = {}
+    for name, p, e in (("coo", coo, None), ("rows", rows, ell)):
+        def solve(iters, p=p, e=e):
+            return ba.solve_ba(p, ba.BAOptions(**dict(BA_OPTS,
+                                                      max_iters=iters)), e)
+        solve(2)  # warm-up
+        torch.cuda.synchronize()
+        ba.reset_counts()
+        t0 = time.perf_counter()
+        _, info = solve(BA_OPTS["max_iters"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        res[name] = dict(info, its=info["iters"] / wall,
+                         row_solves=ba.COUNTS["row_solves_cuda"],
+                         ops=_lm_step_ops(solve))
+    c_r, c_c = res["rows"]["final_cost"], res["coo"]["final_cost"]
+    print(f"[phase 21] solve_ba at {coo.obs_cam.shape[0]} observations "
+          f"({smi}): rows {ell.cam.slots.shape[0]}x{ell.cam.slots.shape[1]}"
+          f" / {ell.pt.slots.shape[0]}x{ell.pt.slots.shape[1]}; row layout "
+          f"cost {res['rows']['initial_cost']:.2f} -> {c_r:.2f} in "
+          f"{res['rows']['iters']} LM iterations, {res['rows']['its']:.2f} "
+          f"LM iterations/s, {res['rows']['ops']} device operations an LM "
+          f"step; COO {c_c:.2f} in {res['coo']['iters']}, "
+          f"{res['coo']['its']:.2f} LM iterations/s, {res['coo']['ops']} "
+          f"device operations an LM step; parity "
+          f"{abs(c_r - c_c) / c_c:.2e} (limit {ROWS_COST_PARITY})",
+          flush=True)
+    if res["rows"]["row_solves"] != 1 or res["coo"]["row_solves"] != 0:
+        fail(f"row solve counts {res}")
+    if not BA_COST_BAND[0] <= c_r <= BA_COST_BAND[1]:
+        fail(f"row-native BA final cost {c_r:.1f} outside {BA_COST_BAND}")
+    if not abs(c_r - c_c) <= ROWS_COST_PARITY * c_c:
+        fail(f"row-native BA cost {c_r} against COO {c_c}")
+
+
+def rows_phase(smi):
+    """Phase 21: (a) both row kernels against their plain versions at
+    bench.py's two sizes, pose-only and D = 14; (b) the row-native solve
+    against the COO solve.  Returns the kernels' stats at 140k, D = 6 (the
+    main path's bench shape) and every case's largest absolute and
+    relative errors {kernel: (abs, rel)}."""
+    from xrsfm_tpu_torch.utils import synth
+
+    t0 = time.perf_counter()
+    stats, err = {}, {"ba_cam_rows": (0.0, 0.0), "ba_pt_rows": (0.0, 0.0)}
+    for size in ("small", "large"):
+        d = synth.ba_problem(**BA_SIZES[size])
+        tag = f"{len(d['obs_cam'])} obs"
+        for with_intri in (False, True):
+            st = rows_compare(tag, d, with_intri, timed=True)
+            if size == "small" and not with_intri:
+                stats = st
+            for k, v in st.items():
+                err[k] = (max(err[k][0], v["max_abs_err"]),
+                          max(err[k][1], v["max_rel_err"]))
+        del d
+    rows_solve(smi)
+    print(f"[phase 21] gates passed in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return stats, err
+
+
+def check_row_launches(tag, lc):
+    """Both row kernels were launched since the last reset and their plain
+    versions never.  Records the launches under tag."""
+    print(f"{tag} row kernel launches {json.dumps(lc)}", flush=True)
+    if (lc["ba_cam_rows_cuda"] <= 0 or lc["ba_pt_rows_cuda"] <= 0
+            or lc["ba_cam_rows_plain"] or lc["ba_pt_rows_plain"]):
+        fail(f"{tag} did not take the row kernels: {lc}")
+    ROW_LAUNCHES[tag] = lc
+
+
+def check_row_path(tag, counts):
+    """The main path's BA went through the row layout on the card: row
+    solves on CUDA, none on the CPU, both row kernels launched and their
+    plain versions never."""
+    from xrsfm_tpu_torch.optim import ba
+
+    print(f"{tag} row-native solves {counts['ba']['row_solves_cuda']} on "
+          f"CUDA ({counts['ba']['row_solves_cpu']} on the CPU)", flush=True)
+    if counts["ba"]["row_solves_cuda"] <= 0 or counts["ba"]["row_solves_cpu"]:
+        fail(f"{tag} BA did not solve in the row layout: {counts['ba']}")
+    check_row_launches(tag, dict(ba.LAUNCHES))
 
 
 def main():
@@ -2115,17 +2471,21 @@ def main():
     print(f"[phase 1] device {name}, torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}", flush=True)
 
-    # phase 2: build from the checkout's sources
-    lib = build.library_path("topstats.cu")
-    if os.path.exists(lib):
-        os.remove(lib)
+    # phase 2: build from the checkout's sources, one nvcc each, together
+    for src in KERNEL_SOURCES:
+        if os.path.exists(build.library_path(src)):
+            os.remove(build.library_path(src))
     t0 = time.perf_counter()
+    build.build(KERNEL_SOURCES)
     build.load("topstats.cu")
-    print(f"[phase 2] built topstats.cu (u8 wgmma, TMA) with nvcc for sm_90a in "
-          f"{time.perf_counter() - t0:.2f} s", flush=True)
-    usage, found = inspect_library(lib)
-    print(f"[phase 2] cuobjdump: {'; '.join(usage)}; instructions {found}",
-          flush=True)
+    print(f"[phase 2] built {', '.join(KERNEL_SOURCES)} with nvcc for sm_90a "
+          f"in {time.perf_counter() - t0:.2f} s (in parallel)", flush=True)
+    usage, found = inspect_library(build.library_path("topstats.cu"))
+    print(f"[phase 2] cuobjdump topstats.cu (u8 wgmma, TMA): "
+          f"{'; '.join(usage)}; instructions {found}", flush=True)
+    for src in KERNEL_SOURCES[1:]:
+        usage, _ = inspect_library(build.library_path(src), False)
+        print(f"[phase 2] cuobjdump {src}: {'; '.join(usage)}", flush=True)
 
     # phase 3: kernel against plain, bit-equal, timed
     kstats = {}
@@ -2176,6 +2536,7 @@ def main():
         instruments_phase(work)
         circuit_tools_phase(work, smi)
         launches20 = bench_phase(work, TM, smi)
+        rows21, rows_err = rows_phase(smi)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -2222,10 +2583,15 @@ def main():
           f"{launches['topstats_cuda']}, phase 11 "
           f"{launches11['topstats_cuda']}, phase 16 (sharded) {launches16}, "
           f"phase 17 {n17}, phase 18 {n18}, phase 20 {n20}", flush=True)
-    print(f"[summary] kernel summary below: launches of phases 4, 11, 16, "
-          f"17, 18 and 20; "
-          f"times and bound at phase 4's chunk shape B=16 N=M={k_main}",
-          flush=True)
+    print(f"[summary] row kernel launches on the main path: "
+          f"{json.dumps(ROW_LAUNCHES)}", flush=True)
+    print(f"[summary] kernel summary below: topstats' launches of phases 4, "
+          f"11, 16, 17, 18 and 20, times and bound at phase 4's chunk shape "
+          f"B=16 N=M={k_main}; the row kernels' launches of phases 7, 8, 17 "
+          f"and 20 (run_benchmarks and e2e_bench, not their references), "
+          f"times and bound at 139,265 observations, pose-only, their "
+          f"largest absolute and relative (gated) errors over every case of "
+          f"phase 21", flush=True)
     print(json.dumps({"kernels": [{
         "name": "topstats",
         "route": "cuda",
@@ -2240,7 +2606,21 @@ def main():
         "bound_ms": k["bound_ms"],
         "bound_by": k["bound_by"],
         "library_ms": None,
-    }]}), flush=True)
+    }] + [{
+        "name": name,
+        "route": "cuda",
+        "source": f"xrsfm_tpu_torch/csrc/{name}.cu",
+        "replaces": replaces,
+        "launches": sum(lc[f"{name}_cuda"] for lc in ROW_LAUNCHES.values()),
+        "max_abs_err": rows_err[name][0],
+        "max_rel_err": rows_err[name][1],
+        "ms": rows21[name]["ms"],
+        "queued_ms": rows21[name]["queued_ms"],
+        "plain_ms": rows21[name]["plain_ms"],
+        "bound_ms": rows21[name]["bound_ms"],
+        "bound_by": rows21[name]["bound_by"],
+        "library_ms": None,
+    } for name, replaces in ROW_KERNELS]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count(),
     }}), flush=True)

@@ -1,7 +1,8 @@
 """The port's benchmark drivers (xrsfm_tpu_torch/tools/bench.py and
 tools/e2e_bench.py) against the JAX repo's bench.py and
-scripts/e2e_bench.py, on the CPU at small sizes: the LM step against the
-same composition of the JAX package's COO functions, the matcher's and
+scripts/e2e_bench.py, on the CPU at small sizes: the LM step against
+bench.py's camera-major row composition of the JAX package's functions at
+float32, the matcher's and
 SIFT's inputs and outputs against what bench.py feeds the JAX package,
 and both JSON lines' keys against the scripts'."""
 
@@ -48,42 +49,59 @@ def _jax_bench():
     return mod
 
 
-@jax.jit
-def _jax_lm_step(p, lam):
-    """bench.py's lm_step on the JAX package's COO functions."""
-    r, z, Jc, Jp = JB._residuals_and_jacobians(p)
-    cost, w = JB._robust_cost_and_weight(r, z, p.obs_w, 4.0)
-    U, V, W, bc, bp = JB._build_normal_blocks(p, r, Jc, Jp, w)
-    dx_c, dx_p = JB._schur_solve(p, U, V, W, bc, bp, lam, 2, 1e-2)
-    cand = JB._apply_step(p, dx_c, dx_p)
-    r2, z2 = JB._residuals_only(cand)
-    c2, _ = JB._robust_cost_and_weight(r2, z2, p.obs_w, 4.0)
-    accept = c2 < cost
-    lam2 = jnp.clip(jnp.where(accept, lam * 0.5, lam * 4.0), 1e-10, 1e8)
-    return (JB._select_accept(accept, p, cand), lam2,
-            jnp.where(accept, c2, cost), accept)
+def _jax_lm_step(ell):
+    """bench.py's lm_step (bench.py:106-134) on `ell`, its dtypes float32:
+    _build_normal_blocks_ell and _build_pt_blocks_native at pt_dtype
+    float32, _schur_solve_ell at compute_dtype float32."""
+    f32 = jnp.float32
+
+    @jax.jit
+    def step(p, lam):
+        w_row = p.obs_w.reshape(ell.cam.slots.shape)
+        r, z, Jc, Jp = JB._residuals_and_jacobians_rows(p, ell)
+        cost, w = JB._robust_cost_and_weight(r, z, w_row, 4.0)
+        U, bc, camw = JB._build_normal_blocks_ell(
+            p, ell, r, Jc, Jp, w, cam_only=True, return_cam_w=True,
+            pt_dtype=f32)
+        V, bp, ptg = JB._build_pt_blocks_native(p, ell, 4.0, pt_dtype=f32)
+        dx_c, dx_p = JB._schur_solve_ell(
+            p, ell, U, V, bc, bp, Jc, Jp, w, lam, 2, 1e-2,
+            compute_dtype=f32, pt_gathers=ptg, cam_w=camw)
+        cand = JB._apply_step(p, dx_c, dx_p)
+        r2, z2 = JB._residuals_only_rows(cand, ell)
+        c2, _ = JB._robust_cost_and_weight(r2, z2, w_row, 4.0)
+        accept = c2 < cost
+        lam2 = jnp.clip(jnp.where(accept, lam * 0.5, lam * 4.0), 1e-10, 1e8)
+        return (JB._select_accept(accept, p, cand), lam2,
+                jnp.where(accept, c2, cost), accept)
+
+    return step
 
 
 def test_lm_step_matches_jax_coo_composition():
-    """5 steps at cg 2 on a 12-camera, 600-point problem (seed 0): every
-    accept decision and lambda equal, the cost within 1e-4 relative at
-    every step; lm_run ends where the steps end."""
+    """5 steps at cg 2 on a 12-camera, 600-point problem (seed 0), both
+    packed camera-major (rows of 128 camera and 32 point slots) and run as
+    bench.py composes the step, the JAX package's at float32: every accept
+    decision and lambda equal, the cost within 1e-4 relative at every step;
+    lm_run ends where the steps end."""
     d = synth.ba_problem(n_cams=12, n_pts=600, seed=0)
-    pj = JB.BAProblem(**{k: jnp.asarray(d[k]) for k in _FIELDS})
-    pt = TB.BAProblem.from_numpy("cpu", **d)
+    pj, ej = JB.pack_camera_major(
+        JB.BAProblem(**{k: jnp.asarray(d[k]) for k in _FIELDS}))
+    pt, et = TB.pack_camera_major(TB.BAProblem.from_numpy("cpu", **d))
+    jax_step = _jax_lm_step(ej)
     lam_j = jnp.float32(1e-4)
     lam_t = torch.tensor(1e-4, dtype=torch.float32)
     p0, l0 = pt, lam_t
     with jax.default_matmul_precision("highest"), full_precision():
         for step in range(5):
-            pj, lam_j2, cost_j, acc_j = _jax_lm_step(pj, lam_j)
-            pt, lam_t2, cost_t = TBENCH.lm_step(pt, lam_t, 2)
+            pj, lam_j2, cost_j, acc_j = jax_step(pj, lam_j)
+            pt, lam_t2, cost_t = TBENCH.lm_step(pt, et, lam_t, 2)
             assert bool(lam_t2 < lam_t) == bool(acc_j), step
             assert float(lam_t2) == float(lam_j2), step
             assert abs(float(cost_t) - float(cost_j)) \
                 <= 1e-4 * float(cost_j), (step, float(cost_t), float(cost_j))
             lam_j, lam_t = lam_j2, lam_t2
-        _, lam_r, cost_r = TBENCH.lm_run(p0, l0, 5, 2)
+        _, lam_r, cost_r = TBENCH.lm_run(p0, et, l0, 5, 2)
     assert float(lam_r) == float(lam_t) and float(cost_r) == float(cost_t)
 
 

@@ -9,11 +9,17 @@ intrinsics solve's 8x8 Jacobi blocks against float64; several shards
 matching bit-equal to one device, and a one-rank NCCL group's BA checksum
 equal to one process's.
 
+The bundle adjuster's row kernels (csrc/ba_cam_rows.cu,
+csrc/ba_pt_rows.cu) against their plain versions, D = 6 and 14, and the
+row-native solve on the card against the CPU.
+
 Needs a CUDA device and nvcc; skips elsewhere.  On a machine with a GPU
 (and no JAX, which the repo's conftest imports), run:
 
     python -m pytest tests/test_torch_kernels_cuda.py -q --noconftest
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -209,6 +215,156 @@ def test_solve_ba_on_cuda_matches_cpu(cuda_device):
     ba.reset_counts()
     gpu, i_gpu = ba.solve_ba(ba.BAProblem.from_numpy(cuda_device, **d), opts)
     assert ba.COUNTS["solves_cuda"] == 1 and ba.COUNTS["solves_cpu"] == 0
+    assert i_gpu["final_cost"] == pytest.approx(i_cpu["final_cost"], rel=1e-4)
+    for g, c in ((gpu.cam_q, cpu.cam_q), (gpu.cam_t, cpu.cam_t),
+                 (gpu.points, cpu.points)):
+        np.testing.assert_allclose(g.cpu().numpy(), c.numpy(), rtol=1e-4,
+                                   atol=1e-4)
+
+
+def _row_rel_err(got, exp, rows):
+    """Largest |got - exp| of a row (a block or a slot) over the row's
+    largest |exp|; all-zero rows must match exactly."""
+    g = got.double().reshape(-1, rows).cpu()
+    e = exp.double().reshape(-1, rows).cpu()
+    diff = (g - e).abs().amax(dim=1)
+    norm = e.abs().amax(dim=1)
+    assert not bool((diff[norm == 0] > 0).any())
+    return float((diff / norm.clamp_min(1e-300)).max())
+
+
+def _row_problem(dev, size, with_intri):
+    from xrsfm_tpu_torch.optim import ba
+    from xrsfm_tpu_torch.utils import camera as Cam
+
+    d = synth.ba_problem(**({"n_cams": 20, "n_pts": 500} if size == "small"
+                            else {"n_cams": 200, "n_pts": 20000}), seed=0)
+    d["cam_intri"][:, 4:] = [-0.05, 0.01, 1e-3, -5e-4]
+    if with_intri:
+        n = len(d["cam_q"])
+        free, _ = Cam.intri_free_mask(Cam.PINHOLE)
+        d.update(cam_kam=np.arange(n) // 2,
+                 fix_intri=np.tile(~free[None], (n, 1)),
+                 tie_f=np.arange(n) % 2 == 0)
+    return ba.pack_camera_major(ba.BAProblem.from_numpy(dev, **d))
+
+
+def _rows_f64(p, ell, with_intri):
+    """The row kernels' plain compositions on float64 copies of the
+    inputs: {output: tensor}."""
+    from xrsfm_tpu_torch.optim import ba
+
+    def f64(x):
+        return dataclasses.replace(x, **{
+            f.name: getattr(x, f.name).double()
+            for f in dataclasses.fields(x)
+            if torch.is_tensor(getattr(x, f.name))
+            and getattr(x, f.name).is_floating_point()})
+
+    p, ell = f64(p), f64(ell)
+    r, z, Jc, Jp = ba._residuals_and_jacobians_rows(p, ell, with_intri)
+    _, w = ba._robust_cost_and_weight(
+        r, z, p.obs_w.reshape(ell.cam.slots.shape), 4.0)
+    U, bc, Jcw = ba._build_normal_blocks_ell(
+        p, ell, r, Jc, Jp, w, pt_dtype=torch.float64, cam_only=True,
+        return_cam_w=True)
+    V, bp, (Jpg, spg) = ba._build_pt_blocks_native(p, ell, 4.0,
+                                                   pt_dtype=torch.float64)
+    return dict(U=U, bc=bc, Jcw=Jcw, V=V, bp=bp, Jpg=Jpg, spg=spg)
+
+
+# chip_smoke.py phase 21's limits (float32 sums in other orders and fused
+# multiply-adds; bc, bp and spg are linear in the residual pix - uv, whose
+# float32 rounding differs), relative to a block's or slot's largest entry
+ROW_TOLS = dict(U=1e-4, V=1e-4, Jcw=5e-5, Jpg=1e-5, bc=2e-4, bp=1e-2,
+                spg=2.5e-4)
+
+
+@pytest.mark.parametrize("with_intri", [False, True], ids=["D6", "D14"])
+@pytest.mark.parametrize("size", ["small", "bench"])
+def test_ba_row_kernels_match_plain(cuda_device, size, with_intri):
+    """csrc/ba_cam_rows.cu and csrc/ba_pt_rows.cu against their plain
+    versions at 20 cameras / 500 points and at bench.py's 139,265
+    observations, D = 6 and 14, with distortion, at chip_smoke.py phase
+    21's limits (ROW_TOLS, the cost within 1e-6); against the plain
+    composition in float64 the kernel's error is at most twice the float32
+    plain version's; a second launch gives U, bc, V and bp bit for bit (no
+    atomics)."""
+    from xrsfm_tpu_torch.optim import ba
+
+    D = 14 if with_intri else 6
+    p, ell = _row_problem(cuda_device, size, with_intri)
+    width = dict(U=D * D, bc=D, Jcw=2 * D, V=9, bp=3, Jpg=6, spg=4)
+    got = ba.cam_rows_cuda(p, ell, 4.0, with_intri)
+    again = ba.cam_rows_cuda(p, ell, 4.0, with_intri)
+    torch.cuda.synchronize()
+    cost, U, bc, Jcw = got
+    cost_e, U_e, bc_e, Jcw_e = ba.cam_rows_plain(p, ell, 4.0, with_intri)
+    assert Jcw.shape == Jcw_e.shape == ell.cam.slots.shape + (2, D)
+    assert abs(float(cost) - float(cost_e)) <= 1e-6 * float(cost_e)
+    assert torch.equal(U, again[1]) and torch.equal(bc, again[2])
+    V, bp, (Jpg, spg) = ba.pt_rows_cuda(p, ell, 4.0)
+    V2, bp2, _ = ba.pt_rows_cuda(p, ell, 4.0)
+    torch.cuda.synchronize()
+    V_e, bp_e, (Jpg_e, spg_e) = ba.pt_rows_plain(p, ell, 4.0)
+    assert torch.equal(V, V2) and torch.equal(bp, bp2)
+    kern = dict(U=U, bc=bc, Jcw=Jcw, V=V, bp=bp, Jpg=Jpg, spg=spg)
+    plain = dict(U=U_e, bc=bc_e, Jcw=Jcw_e, V=V_e, bp=bp_e, Jpg=Jpg_e,
+                 spg=spg_e)
+    ref = _rows_f64(p, ell, with_intri)
+    for k, tol in ROW_TOLS.items():
+        assert _row_rel_err(kern[k], plain[k], width[k]) <= tol, k
+        assert (_row_rel_err(kern[k], ref[k], width[k])
+                <= 2 * _row_rel_err(plain[k], ref[k], width[k])), k
+
+
+def test_ba_row_kernels_reject_bad_inputs(cuda_device):
+    """The wrappers raise on a CPU table, a wrong index type and a flat
+    (not camera-major) ELL; the public wrappers count the kernel's
+    launches on CUDA and the plain version's on the CPU."""
+    from xrsfm_tpu_torch.optim import ba
+
+    p, ell = _row_problem(cuda_device, "small", False)
+    bad = dataclasses.replace(ell.cam, other=ell.cam.other.long())
+    with pytest.raises(TypeError):
+        ba.cam_rows_cuda(p, dataclasses.replace(ell, cam=bad), 4.0)
+    with pytest.raises(ValueError):
+        ba.pt_rows_cuda(p, dataclasses.replace(ell, pt_uv=ell.pt_uv.cpu()),
+                        4.0)
+    flat = ba.build_ell(p.obs_cam, p.obs_pt, p.cam_q.shape[0],
+                        p.points.shape[0])
+    with pytest.raises(ValueError):
+        ba.cam_rows_cuda(p, flat, 4.0)
+    ba.reset_launch_counts()
+    ba.cam_rows(p, ell, 4.0)
+    ba.pt_rows(p, ell, 4.0)
+    p_cpu, ell_cpu = _row_problem("cpu", "small", False)
+    ba.cam_rows(p_cpu, ell_cpu, 4.0)
+    assert ba.LAUNCHES == {"ba_cam_rows_cuda": 1, "ba_cam_rows_plain": 1,
+                           "ba_pt_rows_cuda": 1, "ba_pt_rows_plain": 0}
+
+
+def test_row_solve_on_cuda_matches_cpu(cuda_device):
+    """solve_ba(p, opts, ell) on the card (through the row kernels)
+    against the same solve on the CPU (through their plain versions), 20
+    cameras and 500 points, bench settings: final cost, poses and points
+    within rtol 1e-4; a row solve counted on CUDA, every LM iteration
+    through both kernels."""
+    from xrsfm_tpu_torch.optim import ba
+
+    opts = ba.BAOptions(max_iters=10, cg_iters=2, huber_px=4.0,
+                        lam_init=1e-4)
+    p_cpu, ell_cpu = _row_problem("cpu", "small", False)
+    cpu, i_cpu = ba.solve_ba(p_cpu, opts, ell_cpu)
+    ba.reset_counts()
+    ba.reset_launch_counts()
+    p, ell = _row_problem(cuda_device, "small", False)
+    gpu, i_gpu = ba.solve_ba(p, opts, ell)
+    assert ba.COUNTS["row_solves_cuda"] == 1 and ba.COUNTS["solves_cpu"] == 0
+    assert (ba.LAUNCHES["ba_cam_rows_cuda"] == ba.LAUNCHES["ba_pt_rows_cuda"]
+            == ba.COUNTS["lm_iters"] > 0)
+    assert ba.LAUNCHES["ba_cam_rows_plain"] == 0
+    assert ba.LAUNCHES["ba_pt_rows_plain"] == 0
     assert i_gpu["final_cost"] == pytest.approx(i_cpu["final_cost"], rel=1e-4)
     for g, c in ((gpu.cam_q, cpu.cam_q), (gpu.cam_t, cpu.cam_t),
                  (gpu.points, cpu.points)):

@@ -97,14 +97,15 @@ def _sift():
 def _ba():
     out = profile_ba.main(["--cams", "20", "--pts", "500", "--iters", "2",
                            "--device", "cpu"])
-    keys = ["residuals_ms", "jac_normal_ms", "schur_setup_ms",
-            "per_cg_iter_ms", "schur_setup_apply_ms", "iters_per_s_cg4"] + \
+    keys = ["residuals_ms", "cam_rows_ms", "pt_native_ms", "jac_normal_ms",
+            "schur_setup_ms", "per_cg_iter_ms", "schur_setup_apply_ms",
+            "iters_per_s_cg4"] + \
         [f"full_cg{k}_ms" for k in profile_ba.CG_KS]
     assert all(_finite(out[k]) for k in keys), out
     assert out["n_obs"] > 0
     # nothing launches on the CPU
     assert out["launches"] == dict.fromkeys(
-        ["residuals", "jac_normal", "schur_setup"]
+        ["residuals", "cam_rows", "pt_native", "jac_normal", "schur_setup"]
         + [f"full_cg{k}" for k in profile_ba.CG_KS])
 
 

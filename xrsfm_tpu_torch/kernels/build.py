@@ -52,29 +52,43 @@ def library_path(source: str) -> str:
     return os.path.join(BUILD_DIR, f"lib{stem}_{digest.hexdigest()[:16]}.so")
 
 
+def build(sources) -> None:
+    """Compile every csrc/<source> whose library is missing, one nvcc
+    process each, all started together; raises if any fails."""
+    jobs = []
+    for source in sources:
+        path = library_path(source)
+        if os.path.exists(path):
+            continue
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        # build beside the target and rename: concurrent builders each
+        # write their own file and the rename is atomic
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, source)]
+        jobs.append((source, path, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    errors = []
+    for source, path, tmp, proc in jobs:
+        out = proc.communicate()[0]
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            errors.append(f"nvcc failed on {source} ({proc.returncode}):\n"
+                          f"{out}")
+        else:
+            os.replace(tmp, path)
+    if errors:
+        raise RuntimeError("\n".join(errors))
+
+
 def load(source: str) -> ctypes.CDLL:
     """Build csrc/<source> if its library is missing, then load it."""
     with _LOCK:
         lib = _LOADED.get(source)
         if lib is not None:
             return lib
-        path = library_path(source)
-        if not os.path.exists(path):
-            os.makedirs(BUILD_DIR, exist_ok=True)
-            # build beside the target and rename: concurrent builders
-            # each write their own file and the rename is atomic
-            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-            os.close(fd)
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-                   os.path.join(CSRC, source)]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            if proc.returncode != 0:
-                os.unlink(tmp)
-                raise RuntimeError(
-                    f"nvcc failed on {source} ({proc.returncode}):\n"
-                    f"{proc.stdout}{proc.stderr}"
-                )
-            os.replace(tmp, path)
-        lib = ctypes.CDLL(path)
+        build([source])
+        lib = ctypes.CDLL(library_path(source))
         _LOADED[source] = lib
         return lib

@@ -2,10 +2,12 @@
 xrsfm_tpu/mapper/ba_glue.py; reference: BASolver::GBA/LBA set-up,
 src/optimization/ba_solver.cc:358-638).
 
-Builds an unpadded COO BAProblem on the requested device for a local or
-global solve (sharded over a device mesh when one is given), and writes
-the optimized poses and points back in float64 (and, from an
-intrinsics-refining solve, the cameras).
+Builds an unpadded COO BAProblem for a local or global solve, packs it
+camera-major (pack_camera_major) and solves it in the row layout on the
+requested device, as the JAX package does; over a device mesh it solves
+the COO problem through parallel/dist_ba instead.  Writes the optimized
+poses and points back in float64 (and, from an intrinsics-refining solve,
+the cameras).
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ from typing import Optional, Sequence
 import numpy as np
 
 from ..base.map import SfMMap
-from ..optim.ba import BAOptions, BAProblem, solve_ba
+from ..optim.ba import BAOptions, BAProblem, pack_camera_major, solve_ba
 from ..parallel.dist_ba import solve_distributed
 from ..utils import camera as Cam
 from ..utils.io_features import bucket
@@ -171,17 +173,24 @@ def run_ba(
     written back, so they stay bit for bit (the JAX package writes back
     their float32 round trip).
 
-    mesh (parallel.mesh.Mesh of more than one shard): solve through the
-    observation-sharded LM of parallel/dist_ba instead, pose-only or
-    intrinsics-refining, with its own schedule (as the JAX package passes
-    it only max_iters and huber_px)."""
+    The problem is packed camera-major on the host and moved to `device`
+    in one transfer, then solved in the row layout (solve_ba with its
+    EllIndex).  mesh (parallel.mesh.Mesh of more than one shard): solve
+    the COO problem through the observation-sharded LM of
+    parallel/dist_ba instead, pose-only or intrinsics-refining, with its
+    own schedule (as the JAX package passes it only max_iters and
+    huber_px)."""
     gauge = [m.init_id1, m.init_id2] if m.init_id1 >= 0 else []
+    on_mesh = mesh is not None and mesh.size > 1
     t0 = time.perf_counter()
     prob, frames, tracks, n_obs = build_problem(
-        m, opt_frames, device, fix_all_poses=fix_all_poses,
-        gauge_frames=gauge, obs_frames=obs_frames,
-        freeze_tracks=freeze_tracks, freeze_rotations=freeze_rotations,
+        m, opt_frames, device if on_mesh else "cpu",
+        fix_all_poses=fix_all_poses, gauge_frames=gauge,
+        obs_frames=obs_frames, freeze_tracks=freeze_tracks,
+        freeze_rotations=freeze_rotations,
     )
+    if prob is not None and not on_mesh:
+        prob, ell = pack_camera_major(prob, device=device)
     PROF["build"] += time.perf_counter() - t0
     PROF["calls"] += 1
     if prob is None:
@@ -189,14 +198,14 @@ def run_ba(
     t0 = time.perf_counter()
     if optimize_intrinsics:
         opts = dataclasses.replace(opts, optimize_intrinsics=True)
-    if mesh is not None and mesh.size > 1:
+    if on_mesh:
         stats = {}
         sol, _ = solve_distributed(
             mesh, prob, max_iters=opts.max_iters, huber_px=opts.huber_px,
             stats=stats, optimize_intrinsics=optimize_intrinsics)
         info = stats
     else:
-        sol, info = solve_ba(prob, opts)
+        sol, info = solve_ba(prob, opts, ell)
     q = sol.cam_q.cpu().numpy().astype(np.float64)
     t = sol.cam_t.cpu().numpy().astype(np.float64)
     pts = sol.points.cpu().numpy().astype(np.float64)

@@ -7,7 +7,9 @@ through parallel/mesh.initialize_distributed at a file:// store under
 cards raise here, before anything starts, as make_mesh does), Gloo on the
 CPU.  Each builds the pod mesh (dcn = processes, ici = 4 shards of its
 device) with make_pod_mesh and runs parallel/dist_ba.solve_distributed on
-bench.py's BA problem (utils/synth.ba_problem) sharded over both axes.  Rank 0 prints the final
+bench.py's BA problem (utils/synth.ba_problem) sharded over both axes, in
+the COO layout (the port's sharded solve has no camera-major ELL yet; the
+JAX script's shards are ELL tables).  Rank 0 prints the final
 cost; the parent then runs the same solve in one process holding all the
 shards and gates cost parity at 1%.  The shard count stays fixed across
 process layouts, so the observations shard identically and only the

@@ -3,7 +3,9 @@ scripts/dist_scaling.py.
 
 Runs parallel/dist_ba.solve_distributed on bench.py's BA problem
 (utils/synth.ba_problem, 139,265 observations at 200 cameras and 20,000
-points) over a mesh of n shards of one device, `Mesh([device] * n)`: on a
+points), in its COO layout (the port's sharded solve has no camera-major
+ELL yet; the JAX script's shards are ELL tables), over a mesh of n shards
+of one device, `Mesh([device] * n)`: on a
 GPU, n shards of that card; on the CPU, n virtual shards.  The JAX script
 needs a process per count (its device count is fixed when its backend
 starts); the port's meshes are built per call, so one process runs every
