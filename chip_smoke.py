@@ -9,9 +9,11 @@ Phases, each reported on its own line:
      wgmma dots on the tensor cores, tiles fed by TMA), csrc/ba_cam_rows.cu
      and csrc/ba_pt_rows.cu (the BA row blocks) with nvcc for sm_90a, from
      the sources in this checkout, one nvcc each, started together; the
-     built libraries' registers and memory (cuobjdump -res-usage) and
+     built libraries' registers and memory (cuobjdump -res-usage), the row
+     kernels' registers, shared memory and spills (nvcc -Xptxas -v) and
      topstats' tensor-core and TMA instructions (cuobjdump -sass), which
-     must be there;
+     must be there; one call of each row-kernel wrapper counted on the
+     card: at most 2 and 1 device operations (WRAPPER_OPS);
   3. the kernel against its plain PyTorch version on the card, on seeded
      descriptors with planted matches, exact ties and ragged masks, at the
      matching stage's chunk shapes and at one ragged shape (3, 200, 184):
@@ -208,9 +210,16 @@ Phases, each reported on its own line:
      slot's largest entry (float32 sums in other orders; the limits and
      the errors they were set from are stated beside them), and against a
      float64 run of the plain composition no worse than twice the float32
-     plain version; a second launch bit-equal; each kernel's wrapper timed
-     as one launch and queued, beside its plain version and its byte or
-     operation bound.  (b)
+     plain version; a second launch bit-equal; random fix_cam, fix_trans,
+     fix_rot and fix_pt (ROWS_FIX_SHARE); each kernel's raw launches
+     (replayed from one wrapper call) and its wrapper timed as one call
+     and queued, beside its plain version and its byte or operation
+     bound; the same at the median and largest row shapes that phases 7,
+     8, 17 and 20(b) called the kernels at (kernels/rows_timing
+     .shaped_problem; the shapes also written to
+     build/main_row_shapes.json), where the outputs are held within
+     ROWS_TOLS of the float64 run (the float32 plain version's own bc
+     error passes 2e-4 on some of them).  (b)
      solve_ba(p, opts, ell) at 139,265 observations: final cost in phase
      6's band and within 1e-3 of the COO solve_ba's; LM iterations/s and
      device operations an LM step of both layouts.
@@ -221,7 +230,8 @@ kernel, topstats, ba_cam_rows and ba_pt_rows, its launches on the main
 path, max_abs_err, for the row kernels max_rel_err (the largest error
 phase 21 gates, relative to a block's or slot's largest entry: U's
 entries reach 10^6, so their absolute error says little), ms (one launch
-between two events), queued_ms,
+between two events; for the row kernels their raw launches, without the
+wrapper), queued_ms,
 plain_ms, bound_ms, bound_by and library_ms, null where no single PyTorch
 call computes the function) and
 {"ok": true, "device": {...}}.
@@ -458,8 +468,18 @@ PEAK_F32_OPS = 67e12
 # csrc/ba_cam_rows.cu at D = 6 and 14 and csrc/ba_pt_rows.cu
 CAM_ROWS_OPS = {6: 268, 14: 672}
 PT_ROWS_OPS = 210
+# device operations one call of each row-kernel wrapper may make: the
+# camera side's two launches (rows, then cameras with the gauge masks and
+# the cost), the point side's one (fix_pt applied inside)
+WRAPPER_OPS = {"ba_cam_rows": 2, "ba_pt_rows": 1}
+# share of cameras frozen by each of fix_cam, fix_trans and fix_rot, and
+# of points by fix_pt, in phase 21(a)'s problems (seeded)
+ROWS_FIX_SHARE = 0.05
 # ba_cam_rows / ba_pt_rows launches of the main-path phases (7, 8, 17, 20)
 ROW_LAUNCHES = {}
+# the shapes the row kernels were called at in phases 7, 8, 17 and 20(b)
+# (optim/ba.ROW_SHAPES summed): {"cam": {(C, Rc, Mc): calls}, "pt": ...}
+MAIN_SHAPES = {"cam": {}, "pt": {}}
 
 
 def fail(msg):
@@ -2207,6 +2227,37 @@ def _rel_err(got, exp, rows):
     return float((diff / norm.clamp_min(1e-300)).max())
 
 
+def row_wrapper_ops():
+    """Phase 2: one call of each row-kernel wrapper (after a warm-up) on a
+    small problem with every freeze flag set somewhere, counted alone:
+    at most WRAPPER_OPS device operations, and at least one.  Counted
+    first thing: late in this process (after phase 20's profiling), a
+    count around a few launches has come back 0.  Returns {kernel:
+    operations}."""
+    from xrsfm_tpu_torch.optim import ba
+    from xrsfm_tpu_torch.kernels import rows_timing
+    from xrsfm_tpu_torch.utils.profiling import dispatch_counter
+
+    d = _intri_fields(rows_timing.problem(["cam", 17, 44, 128]))
+    d["fix_rot"] = np.arange(17) % 5 == 2
+    d["fix_pt"] = np.arange(len(d["points"])) % 7 == 0
+    p, ell = ba.pack_camera_major(ba.BAProblem.from_numpy("cuda", **d))
+    ops = {}
+    for name, call in (("ba_cam_rows",
+                        lambda: ba.cam_rows_cuda(p, ell, 4.0, True)),
+                       ("ba_pt_rows", lambda: ba.pt_rows_cuda(p, ell, 4.0))):
+        call()
+        with dispatch_counter("cuda") as c:
+            call()
+        ops[name] = c["dispatches"]
+    print(f"[phase 2] device operations of one wrapper call: "
+          f"{json.dumps(ops)} (limits {json.dumps(WRAPPER_OPS)})",
+          flush=True)
+    if not all(0 < ops[k] <= WRAPPER_OPS[k] for k in ops):
+        fail(f"row-kernel wrappers: {ops} device operations a call")
+    return ops
+
+
 def rows_bound_ms(kind, p, ell, D=6):
     """Least time of one row-kernel call on this card, in ms, and what
     bounds it: every input read once and every output written once at
@@ -2244,27 +2295,39 @@ def rows_f64(p, ell, with_intri):
 
     p, ell = _as_f64(p), _as_f64(ell)
     r, z, Jc, Jp = ba._residuals_and_jacobians_rows(p, ell, with_intri)
-    _, w = ba._robust_cost_and_weight(
+    cost, w = ba._robust_cost_and_weight(
         r, z, p.obs_w.reshape(ell.cam.slots.shape), 4.0)
     U, bc, Jcw = ba._build_normal_blocks_ell(
         p, ell, r, Jc, Jp, w, pt_dtype=torch.float64, cam_only=True,
         return_cam_w=True)
     V, bp, (Jpg, spg) = ba._build_pt_blocks_native(p, ell, 4.0,
                                                    pt_dtype=torch.float64)
-    return dict(U=U, bc=bc, Jcw=Jcw, V=V, bp=bp, Jpg=Jpg, spg=spg)
+    return dict(cost=cost, U=U, bc=bc, Jcw=Jcw, V=V, bp=bp, Jpg=Jpg,
+                spg=spg)
 
 
-def rows_compare(tag, d, with_intri, timed):
-    """Phase 21(a) on one problem, with ROWS_DISTORTION: ba_cam_rows (at
-    D = 6 or 14) and ba_pt_rows against their plain versions, a second
-    launch bit-equal to the first, both beside a float64 run of the plain
-    composition; timed: each kernel's wrapper as one launch between events
-    and queued, its plain version, its bound.  Returns {kernel: stats}."""
+def rows_compare(tag, d, with_intri, timed, against="plain"):
+    """Phase 21(a) on one problem, with ROWS_DISTORTION and random freeze
+    flags: ba_cam_rows (at D = 6 or 14) and ba_pt_rows within ROWS_TOLS of
+    their plain versions (against="plain") or of the float64 run of the
+    plain composition (against="float64", where the float32 plain
+    version's own error can pass ROWS_TOLS), a second launch bit-equal to
+    the first, and against float64 no worse than ROWS_F64_RATIO times the
+    plain version; timed: each kernel's raw launches and its wrapper as
+    one call between events and queued, its plain version, its bound.
+    Returns {kernel: stats}."""
     from xrsfm_tpu_torch.optim import ba
+    from xrsfm_tpu_torch.kernels import rows_timing
 
     D = 14 if with_intri else 6
     d = dict(d, cam_intri=d["cam_intri"].copy())
     d["cam_intri"][:, 4:] = ROWS_DISTORTION
+    rng = np.random.default_rng(21)
+    n_cams, n_pts = len(d["cam_q"]), len(d["points"])
+    for k, n in (("fix_cam", n_cams), ("fix_trans", n_cams),
+                 ("fix_rot", n_cams), ("fix_pt", n_pts)):
+        d[k] = (np.zeros(n, bool) if d.get(k) is None else d[k].copy())
+        d[k] |= rng.random(n) < ROWS_FIX_SHARE
     p, ell = ba.pack_camera_major(ba.BAProblem.from_numpy(
         "cuda", **(_intri_fields(d) if with_intri else d)))
     Rc, Mc = ell.cam.slots.shape
@@ -2299,6 +2362,11 @@ def rows_compare(tag, d, with_intri, timed):
         # the float64 witness: each float32 version's error against it
         f64 = {k: (_rel_err(g[k], ref[k], width[k]),
                    _rel_err(e[k], ref[k], width[k])) for k in g}
+        if against == "float64":  # the gated errors: against float64
+            errs = {k: v[0] for k, v in f64.items()}
+            if kind == "cam":
+                errs["cost"] = (abs(float(cost) - float(ref["cost"]))
+                                / abs(float(ref["cost"])))
         st = {"max_abs_err": max(float((g[k].double() - e[k].double())
                                        .abs().max()) for k in g),
               "max_rel_err": max(errs.values()), "errs": errs, "f64": f64}
@@ -2309,7 +2377,8 @@ def rows_compare(tag, d, with_intri, timed):
                for k, (a, b) in f64.items()}
         print(f"[phase 21] {name} {tag}"
               f"{' D=' + str(D) if kind == 'cam' else ''}, {shape}: "
-              f"relative errors {json.dumps(rel)} (limits "
+              f"relative errors against the {against} version "
+              f"{json.dumps(rel)} (limits "
               f"{json.dumps({k: ROWS_TOLS[k] for k in rel})}), max abs "
               f"{st['max_abs_err']:.4g}; against float64 [kernel, plain] "
               f"(limit kernel <= {ROWS_F64_RATIO} plain) "
@@ -2326,15 +2395,20 @@ def rows_compare(tag, d, with_intri, timed):
             fail(f"{name} {tag}: against float64 {bad} (kernel, plain), "
                  f"above {ROWS_F64_RATIO}x the plain version's")
         if timed:
-            st["ms"] = time_ms(kern, 20)
-            st["queued_ms"] = queued_ms(kern)
-            st["plain_ms"] = time_ms(plain, 5)
+            t = rows_timing.time_kernel(ba, kern)
+            st.update(ms=t["raw_ms"], queued_ms=t["raw_queued_ms"],
+                      wrapper_ms=t["wrapper_ms"],
+                      wrapper_queued_ms=t["wrapper_queued_ms"],
+                      plain_ms=time_ms(plain, 5), shape=shape)
             st["bound_ms"], st["bound_by"] = rows_bound_ms(kind, p, ell, D)
-            print(f"[phase 21] {name} {tag}: {st['ms']:.4f} ms as one "
-                  f"launch, {st['queued_ms']:.4f} ms queued; bound "
+            print(f"[phase 21] {name} {tag}: raw launches "
+                  f"{st['ms']:.4f} ms as one call, {st['queued_ms']:.4f} ms "
+                  f"queued; wrapper {st['wrapper_ms']:.4f} ms, "
+                  f"{st['wrapper_queued_ms']:.4f} ms queued; bound "
                   f"{st['bound_ms']:.5f} ms by {st['bound_by']} "
                   f"({100 * st['bound_ms'] / st['queued_ms']:.1f}% of the "
-                  f"queued time); plain {st['plain_ms']:.4f} ms", flush=True)
+                  f"raw queued time); plain {st['plain_ms']:.4f} ms",
+                  flush=True)
         out[name] = st
         del got, again, exp, g, e
     del p, ell, ref
@@ -2402,10 +2476,14 @@ def rows_solve(smi):
 
 def rows_phase(smi):
     """Phase 21: (a) both row kernels against their plain versions at
-    bench.py's two sizes, pose-only and D = 14; (b) the row-native solve
-    against the COO solve.  Returns the kernels' stats at 140k, D = 6 (the
-    main path's bench shape) and every case's largest absolute and
-    relative errors {kernel: (abs, rel)}."""
+    bench.py's two sizes, pose-only and D = 14, and at the median and
+    largest row shapes of phases 7, 8, 17 and 20(b) (MAIN_SHAPES, when
+    those phases ran); (b) the row-native solve against the COO solve.
+    Returns the kernels' stats at 140k, D = 6 (the main path's bench
+    shape), every case's largest absolute and relative errors {kernel:
+    (abs, rel)} and the stats at the main path's shapes {(kernel,
+    "median" | "largest"): stats}."""
+    from xrsfm_tpu_torch.kernels import rows_timing
     from xrsfm_tpu_torch.utils import synth
 
     t0 = time.perf_counter()
@@ -2421,20 +2499,83 @@ def rows_phase(smi):
                 err[k] = (max(err[k][0], v["max_abs_err"]),
                           max(err[k][1], v["max_rel_err"]))
         del d
+    # the main path's median and largest shapes (phases 7, 8, 17, 20(b)),
+    # both kernels checked on each problem, the one of that side timed;
+    # the shapes also go to build/main_row_shapes.json (kernels.rows_timing
+    # --shapes takes the file)
+    main, specs = {}, []
+    for kind, name in (("cam", "ba_cam_rows"), ("pt", "ba_pt_rows")):
+        _, _, med, big = shape_stats(MAIN_SHAPES[kind])
+        for which, shape in (("median", med), ("largest", big)):
+            if shape is None:
+                continue
+            specs.append([kind, *shape])
+            st = rows_compare(f"main path's {which} {kind} shape "
+                              f"{list(shape)}",
+                              rows_timing.problem([kind, *shape]), False,
+                              timed=True, against="float64")
+            main[(name, which)] = dict(st[name], main_shape=list(shape))
+            for k, v in st.items():
+                err[k] = (max(err[k][0], v["max_abs_err"]),
+                          max(err[k][1], v["max_rel_err"]))
+    if specs:
+        from xrsfm_tpu_torch.kernels import build
+
+        with open(os.path.join(os.path.dirname(build.BUILD_DIR),
+                               "main_row_shapes.json"), "w") as f:
+            json.dump(specs, f)
     rows_solve(smi)
     print(f"[phase 21] gates passed in {time.perf_counter() - t0:.1f} s",
           flush=True)
-    return stats, err
+    return stats, err, main
+
+
+def shape_stats(tally):
+    """(calls, smallest, median and largest shape) of a {(n, R, M): calls}
+    tally, shapes ordered by R * M slots, the median over the calls."""
+    items = sorted(tally.items(), key=lambda kv: (kv[0][1] * kv[0][2],
+                                                  kv[0]))
+    n = sum(tally.values())
+    if not n:
+        return 0, None, None, None
+    seen = 0
+    for shape, k in items:
+        seen += k
+        if 2 * seen >= n:
+            return n, items[0][0], shape, items[-1][0]
+
+
+def print_shapes(tag, shapes):
+    """One line: each row kernel's calls and its smallest, median and
+    largest shape by slots."""
+    parts = []
+    for kind, name, dims in (("cam", "ba_cam_rows", "(C, Rc, Mc)"),
+                             ("pt", "ba_pt_rows", "(P, Rp, Lw)")):
+        n, small, med, big = shape_stats(shapes[kind])
+        if n:
+            parts.append(f"{name} {n} calls, {dims} smallest {list(small)}"
+                         f", median {list(med)} ({med[1] * med[2]} slots), "
+                         f"largest {list(big)} ({big[1] * big[2]} slots), "
+                         f"{len(shapes[kind])} shapes")
+    print(f"{tag} row shapes: {'; '.join(parts)}", flush=True)
 
 
 def check_row_launches(tag, lc):
     """Both row kernels were launched since the last reset and their plain
-    versions never.  Records the launches under tag."""
+    versions never.  Records the launches under tag and, but for phase
+    20(a)'s bench.py problems, the shapes in MAIN_SHAPES."""
+    from xrsfm_tpu_torch.optim import ba
+
     print(f"{tag} row kernel launches {json.dumps(lc)}", flush=True)
     if (lc["ba_cam_rows_cuda"] <= 0 or lc["ba_pt_rows_cuda"] <= 0
             or lc["ba_cam_rows_plain"] or lc["ba_pt_rows_plain"]):
         fail(f"{tag} did not take the row kernels: {lc}")
     ROW_LAUNCHES[tag] = lc
+    print_shapes(tag, ba.ROW_SHAPES)
+    if not tag.endswith(" bench"):
+        for kind, tally in ba.ROW_SHAPES.items():
+            for shape, k in tally.items():
+                MAIN_SHAPES[kind][shape] = MAIN_SHAPES[kind].get(shape, 0) + k
 
 
 def check_row_path(tag, counts):
@@ -2486,6 +2627,10 @@ def main():
     for src in KERNEL_SOURCES[1:]:
         usage, _ = inspect_library(build.library_path(src), False)
         print(f"[phase 2] cuobjdump {src}: {'; '.join(usage)}", flush=True)
+    for src, text in build.ptxas_report(KERNEL_SOURCES[1:]).items():
+        print(f"[phase 2] nvcc -Xptxas -v {src}: "
+              f"{' | '.join(text.splitlines())}", flush=True)
+    wrapper_ops = row_wrapper_ops()
 
     # phase 3: kernel against plain, bit-equal, timed
     kstats = {}
@@ -2536,7 +2681,7 @@ def main():
         instruments_phase(work)
         circuit_tools_phase(work, smi)
         launches20 = bench_phase(work, TM, smi)
-        rows21, rows_err = rows_phase(smi)
+        rows21, rows_err, rows_main = rows_phase(smi)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -2585,13 +2730,29 @@ def main():
           f"phase 17 {n17}, phase 18 {n18}, phase 20 {n20}", flush=True)
     print(f"[summary] row kernel launches on the main path: "
           f"{json.dumps(ROW_LAUNCHES)}", flush=True)
+    print_shapes("[summary] phases 7, 8, 17 and 20(b):", MAIN_SHAPES)
+    for kname, _ in ROW_KERNELS:
+        cases = [("139,265 obs, pose-only", rows21[kname])] + [
+            (f"the main path's {which} shape "
+             f"{rows_main[(kname, which)]['main_shape']}",
+             rows_main[(kname, which)]) for which in ("median", "largest")
+            if (kname, which) in rows_main]
+        for what, st in cases:
+            print(f"[summary] {kname} at {what}, {st['shape']} ({smi}): raw "
+                  f"{st['queued_ms']:.5f} ms queued, {st['ms']:.5f} ms as "
+                  f"one call; wrapper {st['wrapper_queued_ms']:.5f} ms "
+                  f"queued, {st['wrapper_ms']:.5f} ms as one call, "
+                  f"{wrapper_ops[kname]} device operations (phase 2); bound "
+                  f"{st['bound_ms']:.5f} ms by {st['bound_by']} "
+                  f"({100 * st['bound_ms'] / st['queued_ms']:.1f}% of raw "
+                  f"queued); plain {st['plain_ms']:.4f} ms", flush=True)
     print(f"[summary] kernel summary below: topstats' launches of phases 4, "
           f"11, 16, 17, 18 and 20, times and bound at phase 4's chunk shape "
           f"B=16 N=M={k_main}; the row kernels' launches of phases 7, 8, 17 "
           f"and 20 (run_benchmarks and e2e_bench, not their references), "
-          f"times and bound at 139,265 observations, pose-only, their "
-          f"largest absolute and relative (gated) errors over every case of "
-          f"phase 21", flush=True)
+          f"their raw launches' times (the wrappers' above) and bound at "
+          f"139,265 observations, pose-only, their largest absolute and "
+          f"relative (gated) errors over every case of phase 21", flush=True)
     print(json.dumps({"kernels": [{
         "name": "topstats",
         "route": "cuda",

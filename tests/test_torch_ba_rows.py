@@ -377,6 +377,104 @@ def test_solve_ba_ell_matches_jax_and_coo(case):
                                    np.asarray(sj.cam_intri)[:, 0], rtol=1e-3)
 
 
+def _kernel_colmask(flags, D):
+    """The gauge mask [C, D] as csrc/ba_cam_rows.cu's cams_kernel forms it
+    from optim/ba._row_masks' flags (fix_cam, fix_rot, fix_trans,
+    fix_intri, tie_f; None where absent)."""
+    fix_cam, fix_rot, fix_trans, fix_intri, tie_f = (
+        None if f is None else f.numpy() for f in flags)
+    C = len(fix_cam)
+    rot = fix_cam | (fix_rot if fix_rot is not None else False)
+    frozen = [np.repeat(rot[:, None], 3, 1),
+              np.repeat((fix_cam | fix_trans)[:, None], 3, 1)]
+    if D == 14:
+        fi = fix_intri.copy()
+        if tie_f is not None:
+            fi[:, 1] |= tie_f
+        frozen.append(fi)
+    m = ~np.concatenate(frozen, axis=1)
+    assert m.shape == (C, D)
+    return m.astype(np.float32)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("with_intri", [False, True], ids=["D6", "D14"])
+def test_row_kernel_masks_match_colmask(with_intri, seed):
+    """The freeze flags the camera-row wrapper hands its kernel
+    (_row_masks: the problem's own bool tensors, nothing packed), decoded
+    by the kernel's rule, give _cam_colmask(p, with_intri) exactly and the
+    JAX package's _cam_colmask, for random fix_cam, fix_trans, fix_rot,
+    fix_intri and tie_f, with fix_rot and tie_f also absent; the point
+    side's flag is fix_pt itself, and pt_rows_plain zeroes exactly the
+    blocks of the points it freezes (and no seen point's else)."""
+    rng = np.random.default_rng(seed)
+    d = _problem(seed=seed, intri=with_intri)
+    C, P = len(d["cam_q"]), len(d["points"])
+    d["fix_cam"] = rng.random(C) < 0.3
+    d["fix_trans"] = rng.random(C) < 0.3
+    d["fix_pt"] = rng.random(P) < 0.3
+    if seed != 1:
+        d["fix_rot"] = rng.random(C) < 0.3
+    if with_intri:
+        d["fix_intri"] = rng.random((C, 8)) < 0.3
+        d["tie_f"] = rng.random(C) < 0.5 if seed != 2 else None
+    p = _port(d)
+    D = 14 if with_intri else 6
+    flags = TB._row_masks(p, with_intri)
+    for f, shape in zip(flags, ((C,), (C,), (C,), (C, 8), (C,))):
+        assert f is None or (f.dtype == torch.bool and f.shape == shape)
+    assert flags[0] is p.fix_cam and flags[2] is p.fix_trans
+    m = _kernel_colmask(flags, D)
+    np.testing.assert_array_equal(m, TB._cam_colmask(p, with_intri).numpy())
+    np.testing.assert_array_equal(
+        m, np.asarray(JB._cam_colmask(_jax(d), with_intri)))
+    pp, ell = TB.pack_camera_major(p)
+    V, bp, _ = TB.pt_rows_plain(pp, ell, 4.0)
+    fp = d["fix_pt"]
+    assert not V[fp].any() and not bp[fp].any()
+    seen = ~fp
+    seen[:3] = False  # _problem puts points 0..2 behind every camera
+    assert bool((V[seen].abs().sum(dim=(1, 2)) > 0).all())
+
+
+@pytest.mark.parametrize("cam_width,pt_width", [(8, 8), (32, 16),
+                                                (128, 32)])
+def test_row_kernel_tables(cam_width, pt_width):
+    """What the row kernels take from pack_camera_major, on a problem with
+    a camera and a point without observations: camera rows of at most 128
+    slots and point rows of 8, 16 or 32, seg non-decreasing and equal to c
+    on rows starts[c]..starts[c+1]-1, at least one row a segment, the
+    point rows' seg consecutive within a warp's groups (32 / Lw points), a
+    padding-only row of weight 0 and ids 0 for the unobserved camera and
+    point, and the same tables as the JAX package's first rows."""
+    d = _problem(seed=5, n_cams=12, n_pts=300)
+    keep = (d["obs_cam"] != 11) & (d["obs_pt"] != 299)
+    for k in ("obs_cam", "obs_pt", "obs_w", "obs_uv"):
+        d[k] = d[k][keep]
+    pt, et, pj, ej = _packed(d, cam_width=cam_width, pt_width=pt_width)
+    for side, n_seg, cap in (("cam", 12, 128), ("pt", 300, 32)):
+        ri = getattr(et, side)
+        R, M = ri.slots.shape
+        seg, starts = ri.seg.numpy(), ri.starts.numpy()
+        assert M <= cap and M <= (cam_width if side == "cam" else pt_width)
+        assert len(starts) == n_seg + 1 and starts[0] == 0
+        assert starts[-1] == R and (np.diff(starts) >= 1).all()
+        np.testing.assert_array_equal(
+            seg, np.repeat(np.arange(n_seg), np.diff(starts)))
+        last = slice(starts[-2], starts[-1])  # the unobserved segment
+        assert starts[-1] - starts[-2] == 1
+        assert not ri.other.numpy()[last].any()
+        np.testing.assert_array_equal(seg, np.asarray(
+            getattr(ej, side).seg)[:R])
+    assert et.pt.slots.shape[1] in (8, 16, 32)
+    Rc, Mc = et.cam.slots.shape
+    w = pt.obs_w.numpy().reshape(Rc, Mc)
+    assert not w[-1].any()
+    assert not et.pt_w.numpy()[-1].any()
+    # every weighted observation has its slot; the rest weigh 0
+    assert (w > 0).sum() == (d["obs_w"] > 0).sum()
+
+
 def test_frozen_parameters_stay_bit_unchanged_on_rows():
     """On the row path, frozen cameras keep q and t, translation-frozen
     cameras t, rotation-frozen cameras q and frozen points their

@@ -20,6 +20,10 @@ Needs a CUDA device and nvcc; skips elsewhere.  On a machine with a GPU
 """
 
 import dataclasses
+import json
+import os
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -263,14 +267,15 @@ def _rows_f64(p, ell, with_intri):
 
     p, ell = f64(p), f64(ell)
     r, z, Jc, Jp = ba._residuals_and_jacobians_rows(p, ell, with_intri)
-    _, w = ba._robust_cost_and_weight(
+    cost, w = ba._robust_cost_and_weight(
         r, z, p.obs_w.reshape(ell.cam.slots.shape), 4.0)
     U, bc, Jcw = ba._build_normal_blocks_ell(
         p, ell, r, Jc, Jp, w, pt_dtype=torch.float64, cam_only=True,
         return_cam_w=True)
     V, bp, (Jpg, spg) = ba._build_pt_blocks_native(p, ell, 4.0,
                                                    pt_dtype=torch.float64)
-    return dict(U=U, bc=bc, Jcw=Jcw, V=V, bp=bp, Jpg=Jpg, spg=spg)
+    return dict(cost=cost, U=U, bc=bc, Jcw=Jcw, V=V, bp=bp, Jpg=Jpg,
+                spg=spg)
 
 
 # chip_smoke.py phase 21's limits (float32 sums in other orders and fused
@@ -318,9 +323,170 @@ def test_ba_row_kernels_match_plain(cuda_device, size, with_intri):
                 <= 2 * _row_rel_err(plain[k], ref[k], width[k])), k
 
 
+def _width_problem(Mc, Lw, with_intri, seed):
+    """numpy problem fields whose pack_camera_major rows are Mc (camera)
+    and Lw (point) slots wide, with random subsets of fix_cam, fix_trans,
+    fix_rot, fix_pt (and, with intrinsics, fix_intri and tie_f), a last
+    camera and a last point without observations (a padding-only row
+    each), at Mc = 128 a first camera of 41 rows and at Lw = 32 a point of
+    several rows.  Cameras look down +z from (0, 0, 0.1 c); points lie 5
+    to 40 beyond the last; as in bench.py's problem the pixels carry 0.5
+    px of noise and the points then move by 0.05; OPENCV distortion
+    set."""
+    rng = np.random.default_rng(seed)
+    C = 13  # the last one unobserved
+    if Mc == 128:
+        cam_n = rng.integers(1, 129, C - 1)
+        cam_n[0] = 40 * 128 + 7
+    else:
+        cam_n = rng.integers(1, Mc + 1, C - 1)
+        cam_n[1] = Mc
+    O = int(cam_n.sum())
+    pt_n = []
+    while sum(pt_n) < O:
+        pt_n.append(int(rng.integers(1, Lw + 1)))
+    pt_n[0] = 2 * 32 + 5 if Lw == 32 else Lw
+    pt_n = np.asarray(pt_n)
+    excess = int(pt_n.sum()) - O
+    while excess > 0:  # trim from the end, every point keeping one
+        i = len(pt_n) - 1
+        take = min(excess, int(pt_n[i]) - 1)
+        pt_n[i] -= take
+        excess -= take
+        if pt_n[i] == 1 and excess:
+            pt_n, excess = pt_n[:-1], excess - 1
+    P = len(pt_n) + 1  # the last one unobserved
+    obs_cam = np.repeat(np.arange(C - 1), cam_n)
+    obs_pt = rng.permutation(np.repeat(np.arange(P - 1), pt_n))
+    f, cx, cy = 718.0, 607.0, 185.0
+    centers = np.zeros((C, 3))
+    centers[:, 2] = 0.1 * np.arange(C)
+    xyz = np.concatenate([rng.uniform(-4.0, 4.0, (P, 2)),
+                          rng.uniform(6.0, 41.0, (P, 1))], 1)
+    pc = xyz[obs_pt] - centers[obs_cam]
+    uv = pc[:, :2] / pc[:, 2:3] * f + np.array([cx, cy])
+    uv += rng.normal(scale=0.5, size=uv.shape)
+    xyz += rng.normal(scale=0.05, size=xyz.shape)
+    q = np.zeros((C, 4), np.float32)
+    q[:, 0] = 1.0
+    intri = np.tile(np.array([f, f, cx, cy, -0.05, 0.01, 1e-3, -5e-4],
+                             np.float32), (C, 1))
+    d = dict(cam_q=q, cam_t=(-centers).astype(np.float32), cam_intri=intri,
+             points=xyz.astype(np.float32), obs_uv=uv.astype(np.float32),
+             obs_cam=obs_cam, obs_pt=obs_pt,
+             obs_w=np.ones(O, np.float32),
+             fix_cam=rng.random(C) < 0.2, fix_trans=rng.random(C) < 0.2,
+             fix_rot=rng.random(C) < 0.2, fix_pt=rng.random(P) < 0.2)
+    if with_intri:
+        d.update(cam_kam=np.arange(C) // 2,
+                 fix_intri=rng.random((C, 8)) < 0.3,
+                 tie_f=rng.random(C) < 0.5)
+    return d
+
+
+def _check_rows(dev, p, ell, with_intri):
+    """Both row kernels within ROW_TOLS of the float64 run of the plain
+    composition (the cost within 1e-6), and against it at most twice the
+    float32 plain version's error (on these sub-pixel problems the plain
+    version's own bc and cost error can pass ROW_TOLS, so float64 is the
+    reference), and a second launch bit-equal.  Returns the kernels'
+    outputs."""
+    from xrsfm_tpu_torch.optim import ba
+
+    D = 14 if with_intri else 6
+    width = dict(U=D * D, bc=D, Jcw=2 * D, V=9, bp=3, Jpg=6, spg=4)
+    cost, U, bc, Jcw = ba.cam_rows_cuda(p, ell, 4.0, with_intri)
+    V, bp, (Jpg, spg) = ba.pt_rows_cuda(p, ell, 4.0)
+    again = ba.cam_rows_cuda(p, ell, 4.0, with_intri)
+    V2, bp2, _ = ba.pt_rows_cuda(p, ell, 4.0)
+    torch.cuda.synchronize()
+    assert torch.equal(cost, again[0]) and torch.equal(U, again[1])
+    assert torch.equal(bc, again[2]) and torch.equal(Jcw, again[3])
+    assert torch.equal(V, V2) and torch.equal(bp, bp2)
+    cost_e, U_e, bc_e, Jcw_e = ba.cam_rows_plain(p, ell, 4.0, with_intri)
+    V_e, bp_e, (Jpg_e, spg_e) = ba.pt_rows_plain(p, ell, 4.0)
+    assert Jcw.shape == Jcw_e.shape == ell.cam.slots.shape + (2, D)
+    ref = _rows_f64(p, ell, with_intri)
+    assert abs(float(cost) - float(ref["cost"])) <= 1e-6 * float(ref["cost"])
+    kern = dict(U=U, bc=bc, Jcw=Jcw, V=V, bp=bp, Jpg=Jpg, spg=spg)
+    plain = dict(U=U_e, bc=bc_e, Jcw=Jcw_e, V=V_e, bp=bp_e, Jpg=Jpg_e,
+                 spg=spg_e)
+    for k, tol in ROW_TOLS.items():
+        err = _row_rel_err(kern[k], ref[k], width[k])
+        assert err <= tol, k
+        assert err <= 2 * _row_rel_err(plain[k], ref[k], width[k]), k
+    return kern
+
+
+def test_ba_row_wrappers_device_operations(cuda_device):
+    """One call of cam_rows_cuda makes at most 2 device operations (its two
+    launches: no mask, cost or copy op around them) and one of
+    pt_rows_cuda 1: chip_smoke.row_wrapper_ops (D = 14, every freeze flag
+    set somewhere, counted with dispatch_counter), run in a fresh
+    interpreter.  In this process a profiled block around the row kernels
+    made the later test_dispatch_counter_counts_launches_and_fetches miss
+    its first kernel on an H100."""
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    res = subprocess.run(
+        [sys.executable, "-c",
+         "import json, chip_smoke; print(json.dumps(chip_smoke."
+         "row_wrapper_ops()))"],
+        cwd=repo, capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stdout + res.stderr
+    ops = json.loads(res.stdout.strip().splitlines()[-1])
+    assert 0 < ops["ba_cam_rows"] <= 2 and 0 < ops["ba_pt_rows"] <= 1, ops
+
+
+@pytest.mark.parametrize("with_intri", [False, True], ids=["D6", "D14"])
+@pytest.mark.parametrize("Lw", [8, 16, 32])
+@pytest.mark.parametrize("Mc", [8, 32, 128])
+def test_ba_row_kernels_masks_and_widths(cuda_device, Mc, Lw, with_intri):
+    """The row kernels at camera rows of 8, 32 and 128 slots and point rows
+    of 8, 16 and 32, with random fix_cam, fix_trans, fix_rot, fix_pt
+    (fix_intri and tie_f at D = 14), a camera of 41 rows (Mc = 128) and a
+    point of several rows (Lw = 32): the checks of
+    test_ba_row_kernels_match_plain (against float64), and the blocks of
+    the camera and the point that have only a padding row exactly
+    zero."""
+    from xrsfm_tpu_torch.optim import ba
+
+    d = _width_problem(Mc, Lw, with_intri, seed=Mc + Lw + with_intri)
+    p, ell = ba.pack_camera_major(ba.BAProblem.from_numpy(cuda_device, **d))
+    assert ell.cam.slots.shape[1] == Mc and ell.pt.slots.shape[1] == Lw
+    starts = ell.cam.starts.cpu()
+    if Mc == 128:
+        assert int(starts[1] - starts[0]) == 41
+    kern = _check_rows(cuda_device, p, ell, with_intri)
+    assert not bool(kern["U"][-1].any()) and not bool(kern["bc"][-1].any())
+    assert not bool(kern["V"][-1].any()) and not bool(kern["bp"][-1].any())
+
+
+@pytest.mark.parametrize("spec", [["cam", 2, 4, 128], ["pt", 168, 168, 8]],
+                         ids=["cam", "pt"])
+def test_ba_row_kernels_at_smallest_main_shape(cuda_device, spec):
+    """Both row kernels on problems whose camera rows (2 cameras, 4 rows
+    of 128) or point rows (168 points, 168 rows of 8) have the smallest
+    shapes chip_smoke.py's main-path phases (7, 8, 17, 20(b)) called them
+    at on an H100, with OPENCV distortion and random freeze flags: the
+    checks of test_ba_row_kernels_masks_and_widths."""
+    from xrsfm_tpu_torch.optim import ba
+    from xrsfm_tpu_torch.kernels import rows_timing
+
+    d = rows_timing.problem(spec)
+    rng = np.random.default_rng(3)
+    for k, n in (("fix_cam", len(d["cam_q"])), ("fix_trans", len(d["cam_q"])),
+                 ("fix_rot", len(d["cam_q"])), ("fix_pt", len(d["points"]))):
+        d[k] = rng.random(n) < 0.2
+    p, ell = ba.pack_camera_major(ba.BAProblem.from_numpy(cuda_device, **d))
+    side = ell.cam if spec[0] == "cam" else ell.pt
+    assert (len(side.starts) - 1, *side.slots.shape) == tuple(spec[1:])
+    _check_rows(cuda_device, p, ell, False)
+
+
 def test_ba_row_kernels_reject_bad_inputs(cuda_device):
-    """The wrappers raise on a CPU table, a wrong index type and a flat
-    (not camera-major) ELL; the public wrappers count the kernel's
+    """The wrappers raise on a CPU table, a wrong index type, a flat (not
+    camera-major) ELL and point rows of a width other than 8, 16 or 32;
+    the public wrappers count the kernel's
     launches on CUDA and the plain version's on the CPU."""
     from xrsfm_tpu_torch.optim import ba
 
@@ -335,6 +501,9 @@ def test_ba_row_kernels_reject_bad_inputs(cuda_device):
                         p.points.shape[0])
     with pytest.raises(ValueError):
         ba.cam_rows_cuda(p, flat, 4.0)
+    p4, ell4 = ba.pack_camera_major(p, pt_width=4)  # point rows of 4 slots
+    with pytest.raises(ValueError):
+        ba.pt_rows_cuda(p4, ell4, 4.0)
     ba.reset_launch_counts()
     ba.cam_rows(p, ell, 4.0)
     ba.pt_rows(p, ell, 4.0)

@@ -4,13 +4,14 @@
 // Replaces, on the row-native path of the JAX package's solver, the XLA
 // code of xrsfm_tpu/optim/ba.py::_residuals_and_jacobians_rows (:570),
 // _robust_cost_and_weight (:608) and _build_normal_blocks_ell(cam_only=True,
-// return_cam_w=True) (:718).  No Pallas kernel is replaced.  Its plain
-// PyTorch version is xrsfm_tpu_torch/optim/ba.py::cam_rows_plain.
+// return_cam_w=True) (:718), with the gauge masks of _cam_colmask.  No
+// Pallas kernel is replaced.  Its plain PyTorch version is
+// xrsfm_tpu_torch/optim/ba.py::cam_rows_plain.
 //
-// Input: the problem packed by pack_camera_major.  Camera c owns the
-// consecutive rows starts[c] .. starts[c+1]-1 of Mc <= 128 slots; slot o of
-// the table holds a pixel obs_uv[o], a base weight obs_w[o] (0 on padding)
-// and a point id other[o].  For every slot:
+// Input: the problem packed by pack_camera_major.  Row r of Mc <= 128 slots
+// belongs to camera seg[r]; camera c owns the consecutive rows starts[c] ..
+// starts[c+1]-1.  Slot o of the table holds a pixel obs_uv[o], a base
+// weight obs_w[o] (0 on padding) and a point id other[o].  For every slot:
 //   pc = R(q_c) x + t_c, proj = pc_xy / z (z guarded at 1e-9),
 //   r = f * distort(proj) + c - uv;
 //   Huber IRLS weight w = obs_w * (1 or huber / |r|), 0 when z <= 1e-3
@@ -20,102 +21,153 @@
 //   with the tied-focal rule, cx, cy, k1, k2, p1, p2);
 //   Jcw = sqrt(w) Jc is written out (the Schur solve's cam_w), and
 //   Jcwᵀ Jcw, -Jcwᵀ (sqrt(w) r) and obs_w * cost are summed.
-// Outputs per camera: U [D, D] (no gauge mask), bc [D], the robust cost.
-// The gauge masks are applied by the wrapper, at [C, D].
+// Outputs: U [C, D, D] and bc [C, D] with the gauge masks applied (column
+// k of camera c is free unless frozen by fix_cam, fix_rot (rotation),
+// fix_trans (translation), fix_intri, or tie_f (the log fy column of a
+// tied focal)), and the robust cost of the table as one float.
+//
+// The residual r = pix - uv cancels two to three digits of pixels that
+// reach 10^3, and bc = -Σ Jcwᵀ (sqrt(w) r) cancels more across a camera's
+// slots.  The projection chain up to r is therefore evaluated in double
+// precision from the float inputs (the rotation, pc, 1 / z, u, v and
+// f d + c - uv; the distortion terms, a few % of u and v, in float), and
+// r is rounded once: the kernel's r and bc stay closer to a float64
+// evaluation than the float32 plain version's.  The Jacobians are
+// float32.
 //
 // What bounds it.  Per slot it reads 28 bytes (uv, w, point id, the
 // gathered point) and writes 8 D bytes of Jcw (48 or 112), and does a few
-// hundred float operations: bytes, at 3.35 TB/s.
+// hundred float operations: bytes, at 3.35 TB/s.  The first design (a
+// block a camera, a thread a slot looping over the camera's rows, 28 or
+// 120 running sums a thread, a shuffle butterfly at the end) ran at 5 to
+// 17% of that: a grid of C blocks leaves most of the card idle, each
+// thread's rows form one dependent chain, D = 14's sums need 199
+// registers, and Jcw left as strided scalar stores.
 //
-// Design.  One thread block per camera, one thread per slot of a row; the
-// block loops over the camera's rows in order.  Each thread keeps its
-// running sums of the 21 (D = 6) or 105 (D = 14) unique entries of U, the
-// D of bc and the cost in registers across the rows; at the end the block
-// reduces them with a fixed tree (a xor-shuffle butterfly inside each warp,
-// then the warps' partials added in warp order through shared memory).  No
-// atomics: the sums repeat bit for bit from run to run.  The camera's
-// rotation is formed once a thread from its quaternion; the point is
-// rotated with multiply-adds in float32 (no reduced-precision unit).
+// Design: the row, not the camera, is the unit of work; two launches.
+//  1. rows_kernel: 256 threads a block hold 256 / Mc consecutive rows, a
+//     thread a slot, so the grid grows with the row count.  Each thread
+//     writes its slot's sqrt(w) Jc [2, D] (as D / 2 16-byte words, no bank
+//     conflict within a quarter warp), sqrt(w) r and cost term into a
+//     shared-memory tile.  The block's Jcw is one contiguous span and
+//     leaves the tile as coalesced 16-byte stores.  The row sums are read
+//     out of the same tile: item (row, chunk, i) sums row i of U (entries
+//     j >= i) and bc_i over its chunk of the row's slots in slot order,
+//     then thread (row, entry) adds the chunks in chunk order and writes
+//     the row's NU + D + 1 partials to a scratch table [Rc, NV].
+//  2. cams_kernel: a block a camera; thread e adds entry e over the
+//     camera's rows in row order, applies the column masks and writes U
+//     (both triangles) and bc.  One more block adds the rows' costs in a
+//     fixed order (8 running sums a thread over a strided pass, then a
+//     tree).  A ticket in its place (the last camera block adding the
+//     cameras' costs) measured 1 to 2 µs slower at 140k.
+// No atomics anywhere: every sum has one order, fixed by the shapes, and
+// a second launch repeats the first bit for bit.
 
 #include <cuda_runtime.h>
 
 namespace {
 
+constexpr int kThreads = 256;  // rows_kernel: slots a block
 constexpr int kMaxWidth = 128;
+constexpr int kCamThreads = 128;  // cams_kernel
 constexpr float kBadResidual = 12.0f;
 
 template <int D>
-__global__ void __launch_bounds__(kMaxWidth) cam_rows_kernel(
+struct Sizes {
+  static constexpr int NU = D * (D + 1) / 2;  // U's upper triangle
+  static constexpr int NV = NU + D + 1;       // then bc, then the cost
+  // (row, chunk) pairs of a block: kThreads / D, and at least 32 (rows of
+  // 8 slots at D = 14 take one chunk a row)
+  static constexpr int kPairs = kThreads / D > 32 ? kThreads / D : 32;
+};
+
+template <int D>
+__global__ void __launch_bounds__(kThreads) rows_kernel(
     const float* __restrict__ cam_q, const float* __restrict__ cam_t,
-    const float* __restrict__ cam_intri, const float* __restrict__ tie_f,
+    const float* __restrict__ cam_intri, const bool* __restrict__ tie_f,
     const float* __restrict__ points, const float* __restrict__ obs_uv,
     const float* __restrict__ obs_w, const int* __restrict__ other,
-    const int* __restrict__ starts, int Mc, float huber,
-    float* __restrict__ U, float* __restrict__ bc, float* __restrict__ cost,
-    float* __restrict__ Jcw) {
-  constexpr int NU = D * (D + 1) / 2;
-  constexpr int NV = NU + D + 1;  // U's upper triangle, bc, cost
-  __shared__ float part[kMaxWidth / 32][NV];
+    const int* __restrict__ seg, int Rc, int Mc, int G, int K, float huber,
+    float* __restrict__ part, float* __restrict__ Jcw) {
+  using S = Sizes<D>;
+  constexpr int W4 = D / 2;  // 16-byte words of a slot's sqrt(w) Jc
+  __shared__ __align__(16) float4 tile[kThreads * W4];
+  __shared__ float2 tile_r[kThreads];
+  __shared__ float tile_c[kThreads];
+  __shared__ float chunk_sum[S::kPairs * S::NV];
 
-  const int c = blockIdx.x;
-  const int s = threadIdx.x;
-  const int lane = s & 31, warp = s >> 5;
+  const int tid = threadIdx.x;
+  const int r0 = blockIdx.x * G;
+  const int rows = min(G, Rc - r0);  // rows of this block
 
-  const float qw = cam_q[4 * c], qx = cam_q[4 * c + 1];
-  const float qy = cam_q[4 * c + 2], qz = cam_q[4 * c + 3];
-  float R[3][3];
-  {
-    const float xx = qx * qx, yy = qy * qy, zz = qz * qz;
-    const float xy = qx * qy, xz = qx * qz, yz = qy * qz;
-    const float wx = qw * qx, wy = qw * qy, wz = qw * qz;
-    R[0][0] = 1.f - 2.f * (yy + zz);
-    R[0][1] = 2.f * (xy - wz);
-    R[0][2] = 2.f * (xz + wy);
-    R[1][0] = 2.f * (xy + wz);
-    R[1][1] = 1.f - 2.f * (xx + zz);
-    R[1][2] = 2.f * (yz - wx);
-    R[2][0] = 2.f * (xz - wy);
-    R[2][1] = 2.f * (yz + wx);
-    R[2][2] = 1.f - 2.f * (xx + yy);
-  }
-  const float t0 = cam_t[3 * c], t1 = cam_t[3 * c + 1], t2 = cam_t[3 * c + 2];
-  const float* in = cam_intri + 8 * c;
-  const float fx = in[0], fy = in[1], cx = in[2], cy = in[3];
-  const float k1 = in[4], k2 = in[5], p1 = in[6], p2 = in[7];
-  const float tie = (D > 6 && tie_f != nullptr) ? tie_f[c] : 0.f;
+  // 1. every slot of the block's rows into the tile
+  const int g = tid / Mc, s = tid - g * Mc;
+  if (g < rows) {
+    const int row = r0 + g;
+    const int c = seg[row];
+    const float qw = cam_q[4 * c], qx = cam_q[4 * c + 1];
+    const float qy = cam_q[4 * c + 2], qz = cam_q[4 * c + 3];
+    double R[3][3];
+    {
+      const double xx = double(qx) * qx, yy = double(qy) * qy;
+      const double zz = double(qz) * qz, xy = double(qx) * qy;
+      const double xz = double(qx) * qz, yz = double(qy) * qz;
+      const double wx = double(qw) * qx, wy = double(qw) * qy;
+      const double wz = double(qw) * qz;
+      R[0][0] = 1.0 - 2.0 * (yy + zz);
+      R[0][1] = 2.0 * (xy - wz);
+      R[0][2] = 2.0 * (xz + wy);
+      R[1][0] = 2.0 * (xy + wz);
+      R[1][1] = 1.0 - 2.0 * (xx + zz);
+      R[1][2] = 2.0 * (yz - wx);
+      R[2][0] = 2.0 * (xz - wy);
+      R[2][1] = 2.0 * (yz + wx);
+      R[2][2] = 1.0 - 2.0 * (xx + yy);
+    }
+    const float* in = cam_intri + 8 * c;
+    const float fx = in[0], fy = in[1], cx = in[2], cy = in[3];
+    const float k1 = in[4], k2 = in[5], p1 = in[6], p2 = in[7];
+    const float tie = (D > 6 && tie_f != nullptr && tie_f[c]) ? 1.f : 0.f;
 
-  float acc[NV];
-#pragma unroll
-  for (int k = 0; k < NV; ++k) acc[k] = 0.f;
-
-  const int row_end = starts[c + 1];
-  for (int row = starts[c]; row < row_end; ++row) {
-    if (s >= Mc) continue;
     const long long o = static_cast<long long>(row) * Mc + s;
     const int pid = other[o];
     const float X = points[3 * pid], Y = points[3 * pid + 1];
     const float Z = points[3 * pid + 2];
     const float w0 = obs_w[o];
-    float pc[3];
+    const float2 uv = reinterpret_cast<const float2*>(obs_uv)[o];
+    // the projection chain to r in double precision, r rounded once
+    double pcd[3];
 #pragma unroll
-    for (int i = 0; i < 3; ++i) pc[i] = R[i][0] * X + R[i][1] * Y + R[i][2] * Z;
-    pc[0] += t0;
-    pc[1] += t1;
-    pc[2] += t2;
-    const float z = pc[2];
-    const float zs = fabsf(z) < 1e-9f ? 1e-9f : z;
-    const float u = pc[0] / zs, v = pc[1] / zs;
+    for (int i = 0; i < 3; ++i) {
+      pcd[i] = R[i][0] * X + R[i][1] * Y + R[i][2] * Z + cam_t[3 * c + i];
+    }
+    const float z = static_cast<float>(pcd[2]);
+    const double izd = 1.0 / (fabsf(z) < 1e-9f ? 1e-9 : pcd[2]);
+    const double ud = pcd[0] * izd, vd = pcd[1] * izd;
+    // the distortion terms are a few % of u, v: float suffices for them
+    const float u = static_cast<float>(ud), v = static_cast<float>(vd);
     const float u2 = u * u, v2 = v * v, r2 = u2 + v2;
     const float radial = k1 * r2 + k2 * r2 * r2;
-    const float d0 = u + (u * radial + 2.f * p1 * u * v + p2 * (r2 + 2.f * u2));
-    const float d1 = v + (v * radial + 2.f * p2 * u * v + p1 * (r2 + 2.f * v2));
-    const float r0 = fx * d0 + cx - obs_uv[2 * o];
-    const float r1 = fy * d1 + cy - obs_uv[2 * o + 1];
+    const double d0d = ud + (u * radial + 2.f * p1 * u * v + p2 * (r2 + 2.f * u2));
+    const double d1d = vd + (v * radial + 2.f * p2 * u * v + p1 * (r2 + 2.f * v2));
+    const float r0v = static_cast<float>(fx * d0d + (double(cx) - uv.x));
+    const float r1v = static_cast<float>(fy * d1d + (double(cy) - uv.y));
+    const float pc[3] = {static_cast<float>(pcd[0]),
+                         static_cast<float>(pcd[1]), z};
+    const float zs = fabsf(z) < 1e-9f ? 1e-9f : z;
+    const float d0 = static_cast<float>(d0d), d1 = static_cast<float>(d1d);
+    float Rf[3][3];
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+#pragma unroll
+      for (int k = 0; k < 3; ++k) Rf[i][k] = static_cast<float>(R[i][k]);
+    }
 
     // Huber IRLS weight with the negative-depth guard
     const bool bad = z <= 1e-3f;
     const float rn2 = bad ? 2.f * kBadResidual * kBadResidual
-                          : r0 * r0 + r1 * r1;
+                          : r0v * r0v + r1v * r1v;
     const float rn = sqrtf(fmaxf(rn2, 1e-18f));
     const bool quad = rn <= huber;
     const float cst = quad ? rn2 : huber * (2.f * rn - huber);
@@ -130,122 +182,240 @@ __global__ void __launch_bounds__(kMaxWidth) cam_rows_kernel(
     const float j11 = 1.f + radial + v * (v * drad) + 2.f * p2 * u + 6.f * p1 * v;
     const float A[2][2] = {{fx * j00, fx * j01}, {fy * j10, fy * j11}};
     const float iz = 1.f / zs;
-    float J[2][D];
+    float J[2 * D];  // [2, D] row-major: Jcw's layout
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       const float B0 = A[i][0] * iz, B1 = A[i][1] * iz;
       const float B2 = -(A[i][0] * pc[0] + A[i][1] * pc[1]) * (iz * iz);
       float Jp[3];
 #pragma unroll
-      for (int k = 0; k < 3; ++k) Jp[k] = B0 * R[0][k] + B1 * R[1][k] + B2 * R[2][k];
+      for (int k = 0; k < 3; ++k) Jp[k] = B0 * Rf[0][k] + B1 * Rf[1][k] + B2 * Rf[2][k];
       // -Jp x X (the rotation columns), then d pix / d pc
-      J[i][0] = -(Jp[1] * Z - Jp[2] * Y);
-      J[i][1] = -(Jp[2] * X - Jp[0] * Z);
-      J[i][2] = -(Jp[0] * Y - Jp[1] * X);
-      J[i][3] = B0;
-      J[i][4] = B1;
-      J[i][5] = B2;
+      J[i * D + 0] = -(Jp[1] * Z - Jp[2] * Y);
+      J[i * D + 1] = -(Jp[2] * X - Jp[0] * Z);
+      J[i * D + 2] = -(Jp[0] * Y - Jp[1] * X);
+      J[i * D + 3] = B0;
+      J[i * D + 4] = B1;
+      J[i * D + 5] = B2;
     }
     if constexpr (D == 14) {
       const float r4 = r2 * r2;
-      J[0][6] = fx * d0;
-      J[0][7] = 0.f;
-      J[0][8] = 1.f;
-      J[0][9] = 0.f;
-      J[0][10] = fx * u * r2;
-      J[0][11] = fx * u * r4;
-      J[0][12] = fx * 2.f * u * v;
-      J[0][13] = fx * (r2 + 2.f * u2);
-      J[1][6] = tie * fy * d1;
-      J[1][7] = (1.f - tie) * fy * d1;
-      J[1][8] = 0.f;
-      J[1][9] = 1.f;
-      J[1][10] = fy * v * r2;
-      J[1][11] = fy * v * r4;
-      J[1][12] = fy * (r2 + 2.f * v2);
-      J[1][13] = fy * 2.f * u * v;
+      J[6] = fx * d0;
+      J[7] = 0.f;
+      J[8] = 1.f;
+      J[9] = 0.f;
+      J[10] = fx * u * r2;
+      J[11] = fx * u * r4;
+      J[12] = fx * 2.f * u * v;
+      J[13] = fx * (r2 + 2.f * u2);
+      J[D + 6] = tie * fy * d1;
+      J[D + 7] = (1.f - tie) * fy * d1;
+      J[D + 8] = 0.f;
+      J[D + 9] = 1.f;
+      J[D + 10] = fy * v * r2;
+      J[D + 11] = fy * v * r4;
+      J[D + 12] = fy * (r2 + 2.f * v2);
+      J[D + 13] = fy * 2.f * u * v;
     }
-    float* out = Jcw + o * (2 * D);
+    float4* t4 = tile + tid * W4;
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-#pragma unroll
-      for (int k = 0; k < D; ++k) {
-        J[i][k] *= sw;
-        out[i * D + k] = J[i][k];
-      }
+    for (int m = 0; m < W4; ++m) {
+      t4[m] = make_float4(J[4 * m] * sw, J[4 * m + 1] * sw, J[4 * m + 2] * sw,
+                          J[4 * m + 3] * sw);
     }
-    const float s0 = r0 * sw, s1 = r1 * sw;
-    int k = 0;
-#pragma unroll
-    for (int i = 0; i < D; ++i) {
-#pragma unroll
-      for (int j = i; j < D; ++j, ++k) acc[k] += J[0][i] * J[0][j] + J[1][i] * J[1][j];
-    }
-#pragma unroll
-    for (int i = 0; i < D; ++i) acc[NU + i] -= J[0][i] * s0 + J[1][i] * s1;
-    acc[NU + D] += w0 * cst;
-  }
-
-  // fixed-order block reduction: butterfly in each warp, then warp order
-#pragma unroll
-  for (int k = 0; k < NV; ++k) {
-    float x = acc[k];
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
-    if (lane == 0) part[warp][k] = x;
+    tile_r[tid] = make_float2(r0v * sw, r1v * sw);
+    tile_c[tid] = w0 * cst;
   }
   __syncthreads();
-  const int n_warps = blockDim.x >> 5;
-  for (int k = s; k < NV; k += blockDim.x) {
-    float x = part[0][k];
-    for (int w = 1; w < n_warps; ++w) x += part[w][k];
-    if (k < NU) {
-      int i = 0, rem = k;
+
+  // 2. the block's Jcw: one contiguous span, 16-byte coalesced stores
+  {
+    const int n4 = rows * Mc * W4;
+    float4* dst = reinterpret_cast<float4*>(Jcw) +
+                  static_cast<long long>(r0) * Mc * W4;
+    for (int k = tid; k < n4; k += kThreads) dst[k] = tile[k];
+  }
+
+  // 3. item (row g, chunk k, i): U[i][j >= i] and bc[i] over the chunk's
+  // slots in slot order (the cost with i = 0)
+  const float* tf = reinterpret_cast<const float*>(tile);
+  for (int it = tid; it < rows * K * D; it += kThreads) {
+    const int i = it % D;
+    const int k = (it / D) % K;
+    const int gr = it / (D * K);
+    const int lo = gr * Mc + k * Mc / K, hi = gr * Mc + (k + 1) * Mc / K;
+    float acc[D], accb = 0.f, accc = 0.f;
+#pragma unroll
+    for (int j = 0; j < D; ++j) acc[j] = 0.f;
+    for (int sl = lo; sl < hi; ++sl) {
+      float Jr[2 * D];
+#pragma unroll
+      for (int m = 0; m < W4; ++m) {
+        const float4 q = tile[sl * W4 + m];
+        Jr[4 * m] = q.x;
+        Jr[4 * m + 1] = q.y;
+        Jr[4 * m + 2] = q.z;
+        Jr[4 * m + 3] = q.w;
+      }
+      const float a0 = tf[sl * 2 * D + i], a1 = tf[sl * 2 * D + D + i];
+      const float2 sr = tile_r[sl];
+#pragma unroll
+      for (int j = 0; j < D; ++j) acc[j] += a0 * Jr[j] + a1 * Jr[D + j];
+      accb -= a0 * sr.x + a1 * sr.y;
+      accc += tile_c[sl];
+    }
+    float* out = chunk_sum + (gr * K + k) * S::NV;
+    const int e0 = i * D - i * (i - 1) / 2 - i;  // entry of (i, j) is e0 + j
+#pragma unroll
+    for (int j = 0; j < D; ++j) {
+      if (j >= i) out[e0 + j] = acc[j];
+    }
+    out[S::NU + i] = accb;
+    if (i == 0) out[S::NU + D] = accc;
+  }
+  __syncthreads();
+
+  // 4. the row partials: the chunks added in chunk order
+  for (int t = tid; t < rows * S::NV; t += kThreads) {
+    const int gr = t / S::NV, e = t - gr * S::NV;
+    const float* in = chunk_sum + gr * K * S::NV + e;
+    float x = in[0];
+    for (int k = 1; k < K; ++k) x += in[k * S::NV];
+    part[static_cast<long long>(r0 + gr) * S::NV + e] = x;
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kCamThreads) cams_kernel(
+    const float* __restrict__ part, const int* __restrict__ starts,
+    const bool* __restrict__ fix_cam, const bool* __restrict__ fix_rot,
+    const bool* __restrict__ fix_trans, const bool* __restrict__ fix_intri,
+    const bool* __restrict__ tie_f, int C, int Rc, float* __restrict__ U,
+    float* __restrict__ bc, float* __restrict__ cost) {
+  using S = Sizes<D>;
+  constexpr int kLanes = 8;  // the cost block's running sums a thread
+  const int c = blockIdx.x;
+  const int tid = threadIdx.x;
+  if (c == C) {
+    // the cost: thread t adds rows t + 128 k, k mod 8 into sum k mod 8 (so
+    // 8 loads are in flight), then the 8 sums in order, then a tree
+    __shared__ float red[kCamThreads];
+    float acc[kLanes];
+#pragma unroll
+    for (int k = 0; k < kLanes; ++k) acc[k] = 0.f;
+    for (int r0 = tid; r0 < Rc; r0 += kLanes * kCamThreads) {
+#pragma unroll
+      for (int k = 0; k < kLanes; ++k) {
+        const int r = r0 + k * kCamThreads;
+        if (r < Rc) acc[k] += part[static_cast<long long>(r) * S::NV + S::NV - 1];
+      }
+    }
+    float x = acc[0];
+#pragma unroll
+    for (int k = 1; k < kLanes; ++k) x += acc[k];
+    red[tid] = x;
+    __syncthreads();
+    for (int w = kCamThreads / 2; w > 0; w >>= 1) {
+      if (tid < w) red[tid] += red[tid + w];
+      __syncthreads();
+    }
+    if (tid == 0) cost[0] = red[0];
+    return;
+  }
+  __shared__ float mask[D];
+  if (tid < D) {
+    bool frozen;
+    if (tid < 3) {
+      frozen = fix_cam[c] || (fix_rot != nullptr && fix_rot[c]);
+    } else if (tid < 6) {
+      frozen = fix_cam[c] || fix_trans[c];
+    } else {
+      frozen = fix_intri[8 * c + tid - 6] || (tid == 7 && tie_f != nullptr &&
+                                              tie_f[c]);
+    }
+    mask[tid] = frozen ? 0.f : 1.f;
+  }
+  __syncthreads();
+  const int r_lo = starts[c], r_hi = starts[c + 1];
+  for (int e = tid; e < S::NU + D; e += kCamThreads) {
+    float x = 0.f;  // the loads run ahead, the adds stay in row order
+#pragma unroll 4
+    for (int r = r_lo; r < r_hi; ++r) x += part[static_cast<long long>(r) * S::NV + e];
+    if (e < S::NU) {
+      int i = 0, rem = e;
       while (rem >= D - i) {
         rem -= D - i;
         ++i;
       }
       const int j = i + rem;
+      x *= mask[i] * mask[j];
       U[(static_cast<long long>(c) * D + i) * D + j] = x;
       U[(static_cast<long long>(c) * D + j) * D + i] = x;
-    } else if (k < NU + D) {
-      bc[static_cast<long long>(c) * D + (k - NU)] = x;
     } else {
-      cost[c] = x;
+      bc[static_cast<long long>(c) * D + (e - S::NU)] = x * mask[e - S::NU];
     }
   }
 }
 
-}  // namespace
-
-// Launch on `stream`: C blocks of Mc rounded up to a warp.  D is 6 or 14;
-// tie_f may be null (no tied focal).  Returns a cudaError_t.
-extern "C" int ba_cam_rows_launch(const void* cam_q, const void* cam_t,
-                                  const void* cam_intri, const void* tie_f,
-                                  const void* points, const void* obs_uv,
-                                  const void* obs_w, const void* other,
-                                  const void* starts, int C, int Mc, int D,
-                                  float huber, void* U, void* bc, void* cost,
-                                  void* Jcw, void* stream) {
-  if (C < 1 || Mc < 1 || Mc > kMaxWidth || (D != 6 && D != 14)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const unsigned threads = static_cast<unsigned>((Mc + 31) / 32 * 32);
-  const auto st = static_cast<cudaStream_t>(stream);
+template <int D>
+int launch(const void* cam_q, const void* cam_t, const void* cam_intri,
+           const void* points, const void* obs_uv, const void* obs_w,
+           const void* other, const void* seg, const void* starts,
+           const void* fix_cam, const void* fix_rot, const void* fix_trans,
+           const void* fix_intri, const void* tie_f, int C, int Rc, int Mc,
+           float huber, void* U, void* bc, void* cost, void* Jcw, void* part,
+           cudaStream_t st) {
   const auto f = [](const void* p) { return static_cast<const float*>(p); };
   const auto i = [](const void* p) { return static_cast<const int*>(p); };
-  if (D == 6) {
-    cam_rows_kernel<6><<<C, threads, 0, st>>>(
-        f(cam_q), f(cam_t), f(cam_intri), f(tie_f), f(points), f(obs_uv),
-        f(obs_w), i(other), i(starts), Mc, huber, static_cast<float*>(U),
-        static_cast<float*>(bc), static_cast<float*>(cost),
-        static_cast<float*>(Jcw));
-  } else {
-    cam_rows_kernel<14><<<C, threads, 0, st>>>(
-        f(cam_q), f(cam_t), f(cam_intri), f(tie_f), f(points), f(obs_uv),
-        f(obs_w), i(other), i(starts), Mc, huber, static_cast<float*>(U),
-        static_cast<float*>(bc), static_cast<float*>(cost),
-        static_cast<float*>(Jcw));
-  }
+  const auto b = [](const void* p) { return static_cast<const bool*>(p); };
+  const int G = kThreads / Mc < 32 ? kThreads / Mc : 32;  // rows a block
+  // chunks a row: at most one item (row, chunk, i) a thread, each chunk
+  // at least one slot
+  int K = kThreads / (G * D);
+  K = K < 1 ? 1 : (K > Mc ? Mc : K);
+  if (G * K > Sizes<D>::kPairs) return static_cast<int>(cudaErrorInvalidValue);
+  const unsigned blocks = static_cast<unsigned>((Rc + G - 1) / G);
+  rows_kernel<D><<<blocks, kThreads, 0, st>>>(
+      f(cam_q), f(cam_t), f(cam_intri), b(tie_f), f(points), f(obs_uv),
+      f(obs_w), i(other), i(seg), Rc, Mc, G, K, huber,
+      static_cast<float*>(part), static_cast<float*>(Jcw));
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // one block a camera, and one for the cost
+  cams_kernel<D><<<C + 1, kCamThreads, 0, st>>>(
+      f(part), i(starts), b(fix_cam), b(fix_rot), b(fix_trans), b(fix_intri),
+      b(tie_f), C, Rc, static_cast<float*>(U), static_cast<float*>(bc),
+      static_cast<float*>(cost));
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// Launch both kernels on `stream`.  D is 6 or 14; fix_rot and tie_f may be
+// null (nothing frozen by them), fix_intri may be null only when D is 6.
+// part is scratch of Rc (D (D + 1) / 2 + D + 1) floats (the row partials).
+// Jcw and obs_uv must be 16- and 8-byte aligned.  Returns a cudaError_t.
+extern "C" int ba_cam_rows_launch(
+    const void* cam_q, const void* cam_t, const void* cam_intri,
+    const void* points, const void* obs_uv, const void* obs_w,
+    const void* other, const void* seg, const void* starts,
+    const void* fix_cam, const void* fix_rot, const void* fix_trans,
+    const void* fix_intri, const void* tie_f, int C, int Rc, int Mc, int D,
+    float huber, void* U, void* bc, void* cost, void* Jcw, void* part,
+    void* stream) {
+  if (C < 1 || Rc < 1 || Mc < 1 || Mc > kMaxWidth || (D != 6 && D != 14) ||
+      (D == 14 && fix_intri == nullptr) ||
+      reinterpret_cast<unsigned long long>(Jcw) % 16 ||
+      reinterpret_cast<unsigned long long>(obs_uv) % 8) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const auto st = static_cast<cudaStream_t>(stream);
+  if (D == 6) {
+    return launch<6>(cam_q, cam_t, cam_intri, points, obs_uv, obs_w, other,
+                     seg, starts, fix_cam, fix_rot, fix_trans, fix_intri,
+                     tie_f, C, Rc, Mc, huber, U, bc, cost, Jcw, part, st);
+  }
+  return launch<14>(cam_q, cam_t, cam_intri, points, obs_uv, obs_w, other,
+                    seg, starts, fix_cam, fix_rot, fix_trans, fix_intri, tie_f,
+                    C, Rc, Mc, huber, U, bc, cost, Jcw, part, st);
 }

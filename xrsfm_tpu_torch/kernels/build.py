@@ -82,6 +82,36 @@ def build(sources) -> None:
         raise RuntimeError("\n".join(errors))
 
 
+def ptxas_report(sources) -> Dict[str, str]:
+    """What ptxas says of each csrc/<source>'s kernels (registers, shared
+    memory, stack, spill stores and loads): {source: its lines}.  One
+    `nvcc -cubin -Xptxas -v` process each, all started together; builds
+    nothing that load() uses."""
+    jobs = {}
+    tmp = tempfile.mkdtemp(prefix="ptxas_")
+    try:
+        for source in sources:
+            cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+                   "-std=c++17", "-O3", "-cubin", "-Xptxas", "-v", "-o",
+                   os.path.join(tmp, source + ".cubin"),
+                   os.path.join(CSRC, source)]
+            jobs[source] = subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)
+        out = {}
+        for source, proc in jobs.items():
+            text = proc.communicate()[0]
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc -Xptxas -v failed on {source}:\n"
+                                   f"{text}")
+            out[source] = "\n".join(
+                ln.strip() for ln in text.splitlines()
+                if "ptxas info" in ln or "spill" in ln)
+        return out
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def load(source: str) -> ctypes.CDLL:
     """Build csrc/<source> if its library is missing, then load it."""
     with _LOCK:

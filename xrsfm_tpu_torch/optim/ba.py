@@ -54,6 +54,7 @@ float32.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import numpy as np
 import torch
@@ -80,6 +81,10 @@ COUNTS = {"solves_cuda": 0, "solves_cpu": 0, "intri_solves_cuda": 0,
 # the plain version where a CPU tensor sends them to it.
 LAUNCHES = {"ba_cam_rows_cuda": 0, "ba_cam_rows_plain": 0,
             "ba_pt_rows_cuda": 0, "ba_pt_rows_plain": 0}
+# The shapes cam_rows / pt_rows were called at since reset_launch_counts(),
+# either route: calls by (C, Rc, Mc) (cameras, camera rows, slots a row)
+# and by (P, Rp, Lw) (points, point rows, slots a row).
+ROW_SHAPES = {"cam": collections.Counter(), "pt": collections.Counter()}
 
 
 def reset_counts():
@@ -90,6 +95,8 @@ def reset_counts():
 def reset_launch_counts():
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    for tally in ROW_SHAPES.values():
+        tally.clear()
 
 
 @dataclasses.dataclass
@@ -1216,13 +1223,27 @@ def _launch(source, symbol, args, dev):
         raise RuntimeError(f"{source} launch failed: cudaError_t {err}")
 
 
+def _row_masks(p: BAProblem, with_intri: bool):
+    """The problem's own freeze flags as the camera-row kernel reads them
+    (fix_cam, fix_rot, fix_trans, fix_intri, tie_f: bool tensors, None
+    where the problem has none or D = 6 does not read them).  The kernel
+    forms _cam_colmask(p, with_intri) from them: rotation columns free
+    unless fix_cam or fix_rot, translation columns unless fix_cam or
+    fix_trans, intrinsic column k unless fix_intri[:, k], and the log fy
+    column also unless tie_f."""
+    return (p.fix_cam, p.fix_rot, p.fix_trans,
+            p.fix_intri if with_intri else None,
+            p.tie_f if with_intri else None)
+
+
 def cam_rows_cuda(p: BAProblem, ell: EllIndex, huber_px,
                   with_intri: bool = False):
     """The kernel csrc/ba_cam_rows.cu: cam_rows_plain's contract for a
     camera-major packed problem (pack_camera_major) on a CUDA device, whose
-    ids the kernel trusts.  Rows at most 128 slots wide.  Builds the kernel
-    on first use; raises on a bad input, a failed build or a refused
-    launch."""
+    ids the kernel trusts.  Rows at most 128 slots wide.  Two launches (the
+    rows, then the cameras with the gauge masks and the cost); the row
+    partials go to scratch allocated here.  Builds the kernel on first use;
+    raises on a bad input, a failed build or a refused launch."""
     dev = p.cam_q.device
     C, P = p.cam_q.shape[0], p.points.shape[0]
     Rc, Mc = ell.cam.slots.shape
@@ -1230,7 +1251,9 @@ def cam_rows_cuda(p: BAProblem, ell: EllIndex, huber_px,
     if not (ell.cam.contig and 1 <= Mc <= 128 and C >= 1):
         raise ValueError(f"cam_rows: needs camera-major rows of 1..128 "
                          f"slots and a camera, got {Rc}x{Mc}, C={C}")
-    f32, i32 = torch.float32, torch.int32
+    if with_intri and p.fix_intri is None:
+        raise ValueError("cam_rows: D = 14 needs fix_intri")
+    f32, i32, b8 = torch.float32, torch.int32, torch.bool
     _check_cuda(dev, cam_q=(p.cam_q, f32, (C, 4)),
                 cam_t=(p.cam_t, f32, (C, 3)),
                 cam_intri=(p.cam_intri, f32, (C, 8)),
@@ -1238,36 +1261,40 @@ def cam_rows_cuda(p: BAProblem, ell: EllIndex, huber_px,
                 obs_uv=(p.obs_uv, f32, (Rc * Mc, 2)),
                 obs_w=(p.obs_w, f32, (Rc * Mc,)),
                 other=(ell.cam.other, i32, (Rc, Mc)),
+                seg=(ell.cam.seg, i32, (Rc,)),
                 starts=(ell.cam.starts, i32, (C + 1,)))
-    tie = None  # a null pointer: no tied focal
-    if with_intri and p.tie_f is not None:
-        tie = p.tie_f.to(f32)
-        _check_cuda(dev, tie_f=(tie, f32, (C,)))
+    masks = _row_masks(p, with_intri)
+    for name, m, shape in zip(("fix_cam", "fix_rot", "fix_trans",
+                               "fix_intri", "tie_f"), masks,
+                              ((C,), (C,), (C,), (C, 8), (C,))):
+        if m is not None:
+            _check_cuda(dev, **{name: (m, b8, shape)})
+    NV = D * (D + 1) // 2 + D + 1
     U = torch.empty((C, D, D), dtype=f32, device=dev)
     bc = torch.empty((C, D), dtype=f32, device=dev)
-    cost = torch.empty(C, dtype=f32, device=dev)
+    cost = torch.empty((), dtype=f32, device=dev)
     Jcw = torch.empty((Rc, Mc, 2, D), dtype=f32, device=dev)
+    part = torch.empty((Rc, NV), dtype=f32, device=dev)  # row partials
     _launch("ba_cam_rows.cu", "ba_cam_rows_launch",
-            [p.cam_q, p.cam_t, p.cam_intri, tie, p.points, p.obs_uv,
-             p.obs_w, ell.cam.other, ell.cam.starts, C, Mc, D,
-             float(huber_px), U, bc, cost, Jcw], dev)
+            [p.cam_q, p.cam_t, p.cam_intri, p.points, p.obs_uv, p.obs_w,
+             ell.cam.other, ell.cam.seg, ell.cam.starts, *masks, C, Rc, Mc,
+             D, float(huber_px), U, bc, cost, Jcw, part], dev)
     LAUNCHES["ba_cam_rows_cuda"] += 1
-    m = _cam_colmask(p, with_intri)
-    return cost.sum(), U * (m[:, :, None] * m[:, None, :]), bc * m, Jcw
+    return cost, U, bc, Jcw
 
 
 def pt_rows_cuda(p: BAProblem, ell: EllIndex, huber_px):
     """The kernel csrc/ba_pt_rows.cu: pt_rows_plain's contract for a
     camera-major packed problem (pt_uv / pt_w present) on a CUDA device,
-    whose ids the kernel trusts.  Rows at most 32 slots wide.  Builds the
-    kernel on first use; raises on a bad input, a failed build or a
-    refused launch."""
+    whose ids the kernel trusts.  Point rows 8, 16 or 32 slots wide (the
+    widths pack_camera_major gives).  Builds the kernel on first use;
+    raises on a bad input, a failed build or a refused launch."""
     dev = p.cam_q.device
     C, P = p.cam_q.shape[0], p.points.shape[0]
     Rp, Lw = ell.pt.slots.shape
-    if ell.pt_uv is None or not (1 <= Lw <= 32 and P >= 1):
+    if ell.pt_uv is None or Lw not in (8, 16, 32) or P < 1:
         raise ValueError(f"pt_rows: needs pack_camera_major's point rows "
-                         f"of 1..32 slots and a point, got {Rp}x{Lw}, "
+                         f"of 8, 16 or 32 slots and a point, got {Rp}x{Lw}, "
                          f"P={P}")
     f32, i32 = torch.float32, torch.int32
     _check_cuda(dev, cam_q=(p.cam_q, f32, (C, 4)),
@@ -1277,23 +1304,24 @@ def pt_rows_cuda(p: BAProblem, ell: EllIndex, huber_px):
                 pt_uv=(ell.pt_uv, f32, (Rp, Lw, 2)),
                 pt_w=(ell.pt_w, f32, (Rp, Lw)),
                 other=(ell.pt.other, i32, (Rp, Lw)),
-                starts=(ell.pt.starts, i32, (P + 1,)))
+                starts=(ell.pt.starts, i32, (P + 1,)),
+                fix_pt=(p.fix_pt, torch.bool, (P,)))
     V = torch.empty((P, 3, 3), dtype=f32, device=dev)
     bp = torch.empty((P, 3), dtype=f32, device=dev)
     Jpg = torch.empty((Rp, Lw, 2, 3), dtype=f32, device=dev)
     spg = torch.empty((Rp, Lw, 4), dtype=f32, device=dev)
     _launch("ba_pt_rows.cu", "ba_pt_rows_launch",
             [p.cam_q, p.cam_t, p.cam_intri, p.points, ell.pt_uv, ell.pt_w,
-             ell.pt.other, ell.pt.starts, P, Lw, float(huber_px), V, bp, Jpg,
-             spg], dev)
+             ell.pt.other, ell.pt.starts, p.fix_pt, P, Lw, float(huber_px),
+             V, bp, Jpg, spg], dev)
     LAUNCHES["ba_pt_rows_cuda"] += 1
-    ptm = (~p.fix_pt).to(f32)
-    return V * ptm[:, None, None], bp * ptm[:, None], (Jpg, spg)
+    return V, bp, (Jpg, spg)
 
 
 def cam_rows(p: BAProblem, ell: EllIndex, huber_px, with_intri: bool = False):
     """Camera side of one LM iteration in the camera-row layout: the kernel
     for CUDA tensors, the plain version for CPU tensors."""
+    ROW_SHAPES["cam"][(p.cam_q.shape[0],) + tuple(ell.cam.slots.shape)] += 1
     if p.cam_q.device.type == "cuda":
         return cam_rows_cuda(p, ell, huber_px, with_intri)
     if p.cam_q.device.type != "cpu":
@@ -1305,6 +1333,7 @@ def cam_rows(p: BAProblem, ell: EllIndex, huber_px, with_intri: bool = False):
 def pt_rows(p: BAProblem, ell: EllIndex, huber_px):
     """Point side of one LM iteration in the point-row layout: the kernel
     for CUDA tensors, the plain version for CPU tensors."""
+    ROW_SHAPES["pt"][(p.points.shape[0],) + tuple(ell.pt.slots.shape)] += 1
     if p.cam_q.device.type == "cuda":
         return pt_rows_cuda(p, ell, huber_px)
     if p.cam_q.device.type != "cpu":
