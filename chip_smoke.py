@@ -1175,7 +1175,6 @@ def unordered_phase(work, TM, n_frames, distractors, seed, gates):
     frame can register, so on a dense ring of 500 frames it verifies a
     small share of the covisible pairs, by design).
     Returns (kernel launches, keypoints per frame) of the large scene."""
-    from xrsfm_tpu_torch.mapper import ba_glue
     from xrsfm_tpu_torch.ops.umeyama import ate_rmse
     from xrsfm_tpu_torch.pipelines import rec_1dsfm
     from xrsfm_tpu_torch.utils import geometry as G
@@ -1194,8 +1193,6 @@ def unordered_phase(work, TM, n_frames, distractors, seed, gates):
         fail(f"unordered matching: precision {precision:.4f}")
 
     reset_solver_counts()
-    for k in ("build", "solve_fetch", "writeback", "calls"):
-        ba_glue.PROF[k] = 0
     st = {}
     t0 = time.perf_counter()
     m = rec_1dsfm.main(out, os.path.join(ws, "camera_info.txt"),
@@ -1211,9 +1208,7 @@ def unordered_phase(work, TM, n_frames, distractors, seed, gates):
         "total": round(wall, 3), **{k[5:]: round(v, 3) for k, v in
                                     vars(ms).items() if k.startswith("time_")}
     }) + f"; MapperStats registered {ms.registered}, failed {ms.failed}, "
-        f"tracks {ms.tracks}, polish {ms.polish}; run_ba " + json.dumps(
-            {k: (round(v, 3) if isinstance(v, float) else v)
-             for k, v in ba_glue.PROF.items()}), flush=True)
+        f"tracks {ms.tracks}, polish {ms.polish}", flush=True)
     print(f"[phase 11] solver counts {json.dumps(counts)}", flush=True)
     check_no_cpu_solve("unordered", counts)
     if counts["ba"]["intri_solves_cuda"] == 0:

@@ -1,6 +1,6 @@
 """The port's host tools against the JAX package's, on the CPU: the CLI's
 JSON config (the cases of tests/test_aux.py through utils/config and the
-port's CLI), --profile_dir traces (utils/profiling), timers, the native
+port's CLI), --profile_dir traces and spans (utils/profiling), the native
 I/O loader against the Python parsers, export_ply and the drawing
 functions (utils/view), and unpack_collect_data."""
 
@@ -26,7 +26,6 @@ from xrsfm_tpu_torch.utils import config as C
 from xrsfm_tpu_torch.utils import io_features as IOF
 from xrsfm_tpu_torch.utils import native
 from xrsfm_tpu_torch.utils import profiling
-from xrsfm_tpu_torch.utils import timer
 from xrsfm_tpu_torch.utils import view as TV
 
 torch.set_num_threads(2)
@@ -128,30 +127,21 @@ def test_cli_config_and_profile_dir_run(tmp_path):
             assert a.read() == b.read(), name
 
 
-# --- profiling and timers ------------------------------------------------
+# --- profiling --------------------------------------------------------------
 
 
 def test_maybe_trace_and_device_time(tmp_path):
     with profiling.maybe_trace(None):
         pass
     with profiling.maybe_trace(str(tmp_path / "t")):
-        with profiling.annotate("span"):
+        with profiling.span("xrsfm.test.span"):
             x = torch.ones(64) * 2.0
     with open(tmp_path / "t" / "trace.json") as f:
         names = {e.get("name") for e in json.load(f)["traceEvents"]}
-    assert "span" in names
+    assert "xrsfm.test.span" in names
     sec, out = profiling.device_time(lambda v: (v * 2.0).sum(), x,
                                      warmup=1, iters=3)
     assert sec >= 0.0 and float(out) == 256.0
-
-
-def test_timers():
-    ta = timer.TimerArray()
-    with ta["reg"].timing():
-        timer.sync_device([torch.ones(3)])
-    timer.sync_device({"a": torch.zeros(2)})
-    assert ta["reg"].total > 0.0 and ta["new"].total == 0.0
-    assert set(ta.timers) >= {"tot", "reg", "gba", "new"}
 
 
 # --- native I/O ------------------------------------------------------------

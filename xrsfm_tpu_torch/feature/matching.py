@@ -28,6 +28,7 @@ import torch
 from ..device import full_precision, resolve_device
 from ..ops import epipolar, matching as dmatch, ransac
 from ..utils.io_features import FrameFeatures, FramePairData, bucket
+from ..utils.profiling import span
 
 
 @dataclasses.dataclass
@@ -170,127 +171,131 @@ def match_and_verify_pairs(
     devs = list(mesh.devices) if mesh is not None else [resolve_device(device)]
     out: List[FramePairData] = []
 
-    # device-resident descriptor pool, padded per frame to a shared bucket
-    kmax = max((len(f.keypoints) for f in features), default=0)
-    K = bucket(kmax, lo=256)
-    n_f = len(features)
-    descs = np.zeros((n_f, K, 128), np.uint8)
-    masks = np.zeros((n_f, K), bool)
-    kps = np.zeros((n_f, K, 2), np.float32)
-    for i, f in enumerate(features):
-        n = len(f.keypoints)
-        descs[i, :n] = f.descriptors
-        masks[i, :n] = True
-        kps[i, :n] = f.keypoints[:, :2]
-    pools = {}
-    for d in devs:
-        if d not in pools:
-            pools[d] = (torch.from_numpy(descs).to(d),
-                        torch.from_numpy(masks).to(d))
+    with span("xrsfm.match.pairs"):
+        # device-resident descriptor pool, padded per frame to a shared bucket
+        kmax = max((len(f.keypoints) for f in features), default=0)
+        K = bucket(kmax, lo=256)
+        n_f = len(features)
+        descs = np.zeros((n_f, K, 128), np.uint8)
+        masks = np.zeros((n_f, K), bool)
+        kps = np.zeros((n_f, K, 2), np.float32)
+        for i, f in enumerate(features):
+            n = len(f.keypoints)
+            descs[i, :n] = f.descriptors
+            masks[i, :n] = True
+            kps[i, :n] = f.keypoints[:, :2]
+        pools = {}
+        for d in devs:
+            if d not in pools:
+                pools[d] = (torch.from_numpy(descs).to(d),
+                            torch.from_numpy(masks).to(d))
 
-    # pass 1: descriptor matching, pairs batched into fixed-size chunks
-    cand = []  # (i, j, matches [M,2], dists [M])
-    mm = min(K, 4096)
-    B = GROUP * len(devs)
+        # pass 1: descriptor matching, pairs batched into fixed-size chunks
+        cand = []  # (i, j, matches [M,2], dists [M])
+        mm = min(K, 4096)
+        B = GROUP * len(devs)
 
-    def _dispatch_match(s):
-        grp = list(pair_ids[s: s + B])
-        pad = B - len(grp)
-        idx = np.asarray(grp + [grp[-1]] * pad, np.int64)  # keep groups full
-        futs = []
-        for k, d in enumerate(devs[:-(-len(grp) // GROUP)]):
-            descs_d, masks_d = pools[d]
-            futs.append(_to_host(_match_chunk_resident(
-                descs_d, masks_d,
-                torch.from_numpy(idx[k * GROUP:(k + 1) * GROUP]).to(d),
-                opts.dist_th, opts.ratio_th, mm)))
-        return grp, futs
+        def _dispatch_match(s):
+            grp = list(pair_ids[s: s + B])
+            pad = B - len(grp)
+            # keep groups full
+            idx = np.asarray(grp + [grp[-1]] * pad, np.int64)
+            futs = []
+            for k, d in enumerate(devs[:-(-len(grp) // GROUP)]):
+                descs_d, masks_d = pools[d]
+                futs.append(_to_host(_match_chunk_resident(
+                    descs_d, masks_d,
+                    torch.from_numpy(idx[k * GROUP:(k + 1) * GROUP]).to(d),
+                    opts.dist_th, opts.ratio_th, mm)))
+            return grp, futs
 
-    def _harvest_match(grp, futs):
-        m_np, c_np, d_np = _wait_host(futs)
-        for k, (i, j) in enumerate(grp):
-            n_m = int(c_np[k])
-            if n_m < max(8, opts.min_inliers):
-                continue
-            mnp = m_np[k]
-            mnp = mnp[mnp[:, 0] >= 0][:n_m]
-            cand.append((i, j, mnp, d_np[k][: len(mnp)]))
+        def _harvest_match(grp, futs):
+            m_np, c_np, d_np = _wait_host(futs)
+            for k, (i, j) in enumerate(grp):
+                n_m = int(c_np[k])
+                if n_m < max(8, opts.min_inliers):
+                    continue
+                mnp = m_np[k]
+                mnp = mnp[mnp[:, 0] >= 0][:n_m]
+                cand.append((i, j, mnp, d_np[k][: len(mnp)]))
 
-    pending = None
-    for ci, s in enumerate(range(0, len(pair_ids), B)):
-        nxt = _dispatch_match(s)
+        pending = None
+        for ci, s in enumerate(range(0, len(pair_ids), B)):
+            nxt = _dispatch_match(s)
+            if pending is not None:
+                _harvest_match(*pending)
+            pending = nxt
+            if verbose and (ci % 16 == 0):
+                print(
+                    f"[matching] matched {min(s + B, len(pair_ids))}"
+                    f"/{len(pair_ids)}",
+                    flush=True,
+                )
         if pending is not None:
             _harvest_match(*pending)
-        pending = nxt
-        if verbose and (ci % 16 == 0):
-            print(
-                f"[matching] matched {min(s + B, len(pair_ids))}"
-                f"/{len(pair_ids)}",
-                flush=True,
-            )
-    if pending is not None:
-        _harvest_match(*pending)
 
-    # pass 2: geometric verification in bucket-grouped chunks
-    by_bucket = {}
-    for k, (i, j, mnp, d) in enumerate(cand):
-        by_bucket.setdefault(bucket(len(mnp)), []).append(k)
-    th = float(np.float32(opts.f_ransac_px**2))
-    CHUNK = GROUP * len(devs)
+    with span("xrsfm.match.verify"):
+        # pass 2: geometric verification in bucket-grouped chunks
+        by_bucket = {}
+        for k, (i, j, mnp, d) in enumerate(cand):
+            by_bucket.setdefault(bucket(len(mnp)), []).append(k)
+        th = float(np.float32(opts.f_ransac_px**2))
+        CHUNK = GROUP * len(devs)
 
-    def _dispatch_verify(b, grp):
-        x1 = np.zeros((CHUNK, b, 2), np.float32)
-        x2 = np.zeros((CHUNK, b, 2), np.float32)
-        vm = np.zeros((CHUNK, b), bool)
-        seeds = [0] * CHUNK
-        for g, k in enumerate(grp):
-            i, j, mnp, _ = cand[k]
-            n_m = len(mnp)
-            x1[g, :n_m] = kps[i][mnp[:, 0]]
-            x2[g, :n_m] = kps[j][mnp[:, 1]]
-            vm[g, :n_m] = True
-            seeds[g] = pair_seed(i, j)
-        futs = []
-        for k, d in enumerate(devs[:-(-len(grp) // GROUP)]):
-            sl = slice(k * GROUP, (k + 1) * GROUP)
-            gens = [torch.Generator(device=d).manual_seed(s)
-                    for s in seeds[sl]]
-            futs.append(_to_host(_fundamental_ransac_batch(
-                torch.from_numpy(x1[sl]).to(d), torch.from_numpy(x2[sl]).to(d),
-                torch.from_numpy(vm[sl]).to(d), th, generators=gens)))
-        return grp, futs
+        def _dispatch_verify(b, grp):
+            x1 = np.zeros((CHUNK, b, 2), np.float32)
+            x2 = np.zeros((CHUNK, b, 2), np.float32)
+            vm = np.zeros((CHUNK, b), bool)
+            seeds = [0] * CHUNK
+            for g, k in enumerate(grp):
+                i, j, mnp, _ = cand[k]
+                n_m = len(mnp)
+                x1[g, :n_m] = kps[i][mnp[:, 0]]
+                x2[g, :n_m] = kps[j][mnp[:, 1]]
+                vm[g, :n_m] = True
+                seeds[g] = pair_seed(i, j)
+            futs = []
+            for k, d in enumerate(devs[:-(-len(grp) // GROUP)]):
+                sl = slice(k * GROUP, (k + 1) * GROUP)
+                gens = [torch.Generator(device=d).manual_seed(s)
+                        for s in seeds[sl]]
+                futs.append(_to_host(_fundamental_ransac_batch(
+                    torch.from_numpy(x1[sl]).to(d),
+                    torch.from_numpy(x2[sl]).to(d),
+                    torch.from_numpy(vm[sl]).to(d), th, generators=gens)))
+            return grp, futs
 
-    def _harvest_verify(grp, futs):
-        F_b, inl_b, n_inl_b, ok_b = _wait_host(futs)
-        for g, k in enumerate(grp):
-            i, j, mnp, d = cand[k]
-            n_m = len(mnp)
-            n_inl = int(n_inl_b[g])
-            if not bool(ok_b[g]) or n_inl < max(
-                opts.min_inliers, int(opts.min_inlier_ratio * n_m)
-            ):
-                continue
-            out.append(
-                FramePairData(
-                    id1=i,
-                    id2=j,
-                    matches=mnp,
-                    distances=d.astype(np.float64),
-                    E=np.asarray(F_b[g], np.float64),
-                    inlier_num=n_inl,
-                    inlier_mask=inl_b[g][:n_m],
+        def _harvest_verify(grp, futs):
+            F_b, inl_b, n_inl_b, ok_b = _wait_host(futs)
+            for g, k in enumerate(grp):
+                i, j, mnp, d = cand[k]
+                n_m = len(mnp)
+                n_inl = int(n_inl_b[g])
+                if not bool(ok_b[g]) or n_inl < max(
+                    opts.min_inliers, int(opts.min_inlier_ratio * n_m)
+                ):
+                    continue
+                out.append(
+                    FramePairData(
+                        id1=i,
+                        id2=j,
+                        matches=mnp,
+                        distances=d.astype(np.float64),
+                        E=np.asarray(F_b[g], np.float64),
+                        inlier_num=n_inl,
+                        inlier_mask=inl_b[g][:n_m],
+                    )
                 )
-            )
 
-    pending = None
-    for b, idxs in sorted(by_bucket.items()):
-        for s in range(0, len(idxs), CHUNK):
-            nxt = _dispatch_verify(b, idxs[s: s + CHUNK])
-            if pending is not None:
-                _harvest_verify(*pending)
-            pending = nxt
-    if pending is not None:
-        _harvest_verify(*pending)
+        pending = None
+        for b, idxs in sorted(by_bucket.items()):
+            for s in range(0, len(idxs), CHUNK):
+                nxt = _dispatch_verify(b, idxs[s: s + CHUNK])
+                if pending is not None:
+                    _harvest_verify(*pending)
+                pending = nxt
+        if pending is not None:
+            _harvest_verify(*pending)
     if verbose:
         print(
             f"[matching] verified {len(out)}/{len(cand)} candidate pairs",

@@ -13,7 +13,6 @@ the cameras).
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import Optional, Sequence
 
 import numpy as np
@@ -23,6 +22,7 @@ from ..optim.ba import BAOptions, BAProblem, pack_camera_major, solve_ba
 from ..parallel.dist_ba import solve_distributed
 from ..utils import camera as Cam
 from ..utils.io_features import bucket
+from ..utils.profiling import span
 
 
 @dataclasses.dataclass
@@ -148,10 +148,6 @@ def build_problem(
     return prob, frames, tracks, n_obs
 
 
-# per-phase host seconds and call count of run_ba since the last reset
-PROF = {"build": 0.0, "solve_fetch": 0.0, "writeback": 0.0, "calls": 0}
-
-
 def run_ba(
     m: SfMMap,
     opt_frames: Sequence[int],
@@ -179,23 +175,24 @@ def run_ba(
     the COO problem through the observation-sharded LM of
     parallel/dist_ba instead, pose-only or intrinsics-refining, with its
     own schedule (as the JAX package passes it only max_iters and
-    huber_px)."""
+    huber_px).
+
+    Spans: xrsfm.ba.build (the problem and its pack), then the solve's
+    own (xrsfm.ba.solve), xrsfm.ba.fetch (the solved state to the host)
+    and xrsfm.ba.writeback (into the map)."""
     gauge = [m.init_id1, m.init_id2] if m.init_id1 >= 0 else []
     on_mesh = mesh is not None and mesh.size > 1
-    t0 = time.perf_counter()
-    prob, frames, tracks, n_obs = build_problem(
-        m, opt_frames, device if on_mesh else "cpu",
-        fix_all_poses=fix_all_poses, gauge_frames=gauge,
-        obs_frames=obs_frames, freeze_tracks=freeze_tracks,
-        freeze_rotations=freeze_rotations,
-    )
-    if prob is not None and not on_mesh:
-        prob, ell = pack_camera_major(prob, device=device)
-    PROF["build"] += time.perf_counter() - t0
-    PROF["calls"] += 1
+    with span("xrsfm.ba.build"):
+        prob, frames, tracks, n_obs = build_problem(
+            m, opt_frames, device if on_mesh else "cpu",
+            fix_all_poses=fix_all_poses, gauge_frames=gauge,
+            obs_frames=obs_frames, freeze_tracks=freeze_tracks,
+            freeze_rotations=freeze_rotations,
+        )
+        if prob is not None and not on_mesh:
+            prob, ell = pack_camera_major(prob, device=device)
     if prob is None:
         return None
-    t0 = time.perf_counter()
     if optimize_intrinsics:
         opts = dataclasses.replace(opts, optimize_intrinsics=True)
     if on_mesh:
@@ -206,23 +203,22 @@ def run_ba(
         info = stats
     else:
         sol, info = solve_ba(prob, opts, ell)
-    q = sol.cam_q.cpu().numpy().astype(np.float64)
-    t = sol.cam_t.cpu().numpy().astype(np.float64)
-    pts = sol.points.cpu().numpy().astype(np.float64)
-    PROF["solve_fetch"] += time.perf_counter() - t0
-    t0 = time.perf_counter()
-    upd = ~prob.fix_cam.cpu().numpy()
-    fr = frames[upd]
-    if not freeze_rotations:
-        m.q[fr] = q[upd] / np.linalg.norm(q[upd], axis=1, keepdims=True)
-    m.t[fr] = t[upd]
-    m.track_xyz[tracks] = pts
-    if optimize_intrinsics:
-        intri = sol.cam_intri.cpu().numpy().astype(np.float64)
-        cids = m.cam_of_frame[frames]
-        for cid in np.unique(cids):
-            m.update_camera(int(cid), intri[int(np.argmax(cids == cid))])
-    PROF["writeback"] += time.perf_counter() - t0
+    with span("xrsfm.ba.fetch"):
+        q = sol.cam_q.cpu().numpy().astype(np.float64)
+        t = sol.cam_t.cpu().numpy().astype(np.float64)
+        pts = sol.points.cpu().numpy().astype(np.float64)
+    with span("xrsfm.ba.writeback"):
+        upd = ~prob.fix_cam.cpu().numpy()
+        fr = frames[upd]
+        if not freeze_rotations:
+            m.q[fr] = q[upd] / np.linalg.norm(q[upd], axis=1, keepdims=True)
+        m.t[fr] = t[upd]
+        m.track_xyz[tracks] = pts
+        if optimize_intrinsics:
+            intri = sol.cam_intri.cpu().numpy().astype(np.float64)
+            cids = m.cam_of_frame[frames]
+            for cid in np.unique(cids):
+                m.update_camera(int(cid), intri[int(np.argmax(cids == cid))])
     return BAGlueResult(
         frame_ids=frames,
         track_ids=tracks,

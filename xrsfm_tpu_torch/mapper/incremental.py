@@ -19,8 +19,8 @@ intrinsics warm-ups stay on one device, as in the JAX package.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-import time
 
 import numpy as np
 
@@ -33,6 +33,7 @@ from ..optim import global_pose, rot_avg
 from ..optim.ba import BAOptions
 from ..parallel.mesh import make_mesh
 from ..utils import geometry as G
+from ..utils.profiling import span
 
 
 @dataclasses.dataclass
@@ -115,6 +116,13 @@ def polish_restore(m: SfMMap, backup):
 
 @dataclasses.dataclass
 class MapperStats:
+    """Counts and host seconds of one reconstruct().  Each time_* is the
+    sum of the seconds of its spans (utils/profiling.span):
+    time_<phase> of xrsfm.mapper.<phase> for init, select, register,
+    consistency, triangulate, filter, merge and lba; time_check of
+    xrsfm.mapper.correct; time_gba of xrsfm.mapper.gba and
+    xrsfm.mapper.polish; time_total of xrsfm.mapper."""
+
     registered: int = 0
     failed: int = 0
     tracks: int = 0
@@ -155,25 +163,42 @@ class IncrementalMapper:
         if self.opts.verbose:
             print(f"[mapper] {msg}", flush=True)
 
+    @contextlib.contextmanager
+    def _phase(self, phase: str, field: str):
+        """The span xrsfm.mapper.<phase>; its seconds add to
+        stats.<field>."""
+        with span(f"xrsfm.mapper.{phase}") as sp:
+            yield
+        setattr(self.stats, field, getattr(self.stats, field) + sp.seconds)
+
     def reconstruct(self, m: SfMMap) -> bool:
+        with span("xrsfm.mapper") as whole:
+            ok = self._reconstruct(m)
+        self.stats.time_total = whole.seconds
+        if ok:
+            self._log_times(m)
+        return ok
+
+    def _reconstruct(self, m: SfMMap) -> bool:
         o = self.opts
         dev = self.device
-        t_start = time.time()
         n_reg0 = int(np.count_nonzero(m.registered))
-        if m.init_id1 >= 0 and n_reg0 >= 2:
-            # resumed from a snapshot: the map is initialized already
-            self._log(f"resuming with {n_reg0} registered frames")
-        else:
-            if not initialize.find_and_initialize(m, o.init, o.init_id1,
-                                                  o.init_id2, device=dev):
-                self._log("initialization failed")
-                return False
-            self._log(f"initialized with pair ({m.init_id1}, {m.init_id2}), "
-                      f"{m.num_tracks} tracks")
-            ba_glue.run_ba(m, [m.init_id1, m.init_id2],
-                           BAOptions(max_iters=o.gba_iters, huber_px=4.0),
-                           device=dev)
-        self.stats.time_init = time.time() - t_start
+        with span("xrsfm.mapper.init") as init:
+            if m.init_id1 >= 0 and n_reg0 >= 2:
+                # resumed from a snapshot: the map is initialized already
+                self._log(f"resuming with {n_reg0} registered frames")
+            else:
+                if not initialize.find_and_initialize(
+                        m, o.init, o.init_id1, o.init_id2, device=dev):
+                    self._log("initialization failed")
+                    return False
+                self._log(f"initialized with pair ({m.init_id1}, "
+                          f"{m.init_id2}), {m.num_tracks} tracks")
+                ba_glue.run_ba(m, [m.init_id1, m.init_id2],
+                               BAOptions(max_iters=o.gba_iters,
+                                         huber_px=4.0),
+                               device=dev)
+        self.stats.time_init = init.seconds
 
         # growth and polish, with one resurrection round: after a global
         # pose rewrite, frames that failed at drift junctions register
@@ -191,7 +216,9 @@ class IncrementalMapper:
             break
 
         self.stats.tracks = int(np.count_nonzero(m.track_valid))
-        self.stats.time_total = time.time() - t_start
+        return True
+
+    def _log_times(self, m: SfMMap):
         s = self.stats
         tracked = (
             s.time_init + s.time_select + s.time_register
@@ -208,20 +235,18 @@ class IncrementalMapper:
             f"lba {s.time_lba:.1f} gba {s.time_gba:.1f} "
             f"other {s.time_total - tracked:.1f})"
         )
-        return True
 
     def _correct(self, m: SfMMap, frame: int) -> bool:
         """check_and_correct_pose for `frame`, timed; counts a correction
         and grants the amnesty after one."""
         o = self.opts
-        t0 = time.time()
-        corrected = EC.check_and_correct_pose(
-            m, frame, reg_opts=o.reg, tri_opts=o.tri, device=self.device)
-        if corrected:
-            self._log(f"frame {frame}: loop error corrected")
-            self.stats.corrections += 1
-            self._post_correction_amnesty(m)
-        self.stats.time_check += time.time() - t0
+        with self._phase("correct", "time_check"):
+            corrected = EC.check_and_correct_pose(
+                m, frame, reg_opts=o.reg, tri_opts=o.tri, device=self.device)
+            if corrected:
+                self._log(f"frame {frame}: loop error corrected")
+                self.stats.corrections += 1
+                self._post_correction_amnesty(m)
         return corrected
 
     def _grow(self, m: SfMMap, num_reg_at_gba: int):
@@ -233,26 +258,26 @@ class IncrementalMapper:
         dev = self.device
         stop = False
         while not stop:
-            t0 = time.time()
-            reg_opts = o.reg
-            batch = m.ready_frames(o.min_visible,
-                                   max_batch=max(1, o.batch_registration))
-            if len(batch) == 0 and o.min_visible > o.min_visible_floor:
-                # last resort: the single best frame with the relaxed
-                # floor; the consistency gate and the bounded retry
-                # counter reject bad poses (reference analogue: TryLocate
-                # registers from 12 correspondences, pnp.cc:133-168)
-                batch = m.ready_frames(o.min_visible_floor, max_batch=1)
-                if len(batch):
-                    reg_opts = dataclasses.replace(
-                        o.reg, min_correspondences=o.min_visible_floor)
-            self.stats.time_select += time.time() - t0
+            with self._phase("select", "time_select"):
+                reg_opts = o.reg
+                batch = m.ready_frames(o.min_visible,
+                                       max_batch=max(1, o.batch_registration))
+                if len(batch) == 0 and o.min_visible > o.min_visible_floor:
+                    # last resort: the single best frame with the relaxed
+                    # floor; the consistency gate and the bounded retry
+                    # counter reject bad poses (reference analogue:
+                    # TryLocate registers from 12 correspondences,
+                    # pnp.cc:133-168)
+                    batch = m.ready_frames(o.min_visible_floor, max_batch=1)
+                    if len(batch):
+                        reg_opts = dataclasses.replace(
+                            o.reg, min_correspondences=o.min_visible_floor)
             if len(batch) == 0:
                 break
-            t0 = time.time()
-            results = register.register_frames_batch(
-                m, batch, reg_opts, seed_salts=self._rejections, device=dev)
-            self.stats.time_register += time.time() - t0
+            with self._phase("register", "time_register"):
+                results = register.register_frames_batch(
+                    m, batch, reg_opts, seed_salts=self._rejections,
+                    device=dev)
 
             accepted = []
             for nxt in (int(f) for f in batch):
@@ -271,9 +296,9 @@ class IncrementalMapper:
                         stop = True
                         break
                     continue
-                t0 = time.time()
-                consistent = EC.registration_is_consistent(m, nxt, device=dev)
-                self.stats.time_consistency += time.time() - t0
+                with self._phase("consistency", "time_consistency"):
+                    consistent = EC.registration_is_consistent(m, nxt,
+                                                               device=dev)
                 checked_correction = False
                 if not consistent and o.correct_pose:
                     # an epipolar-inconsistent pose at a well-matched frame
@@ -283,10 +308,9 @@ class IncrementalMapper:
                     if self._correct(m, nxt):
                         consistent = True
                     else:
-                        t0 = time.time()
-                        consistent = EC.registration_is_consistent(
-                            m, nxt, device=dev)
-                        self.stats.time_check += time.time() - t0
+                        with self._phase("correct", "time_check"):
+                            consistent = EC.registration_is_consistent(
+                                m, nxt, device=dev)
                     checked_correction = True
                 if not consistent:
                     # planar-PnP ambiguity / bad registration: undo; retry
@@ -307,20 +331,18 @@ class IncrementalMapper:
                 if o.correct_pose and not checked_correction:
                     self._correct(m, nxt)
 
-                t0 = time.time()
-                n_new, n_ext = triangulate.triangulate_frame(m, nxt, o.tri,
-                                                             device=dev)
-                self.stats.time_triangulate += time.time() - t0
+                with self._phase("triangulate", "time_triangulate"):
+                    n_new, n_ext = triangulate.triangulate_frame(
+                        m, nxt, o.tri, device=dev)
 
-                t0 = time.time()
-                tri_ids = [int(t) for t in np.unique(m.track_of[nxt]) if t >= 0]
-                triangulate.filter_tracks(m, tri_ids, o.tri, device=dev)
-                self.stats.time_filter += time.time() - t0
+                with self._phase("filter", "time_filter"):
+                    tri_ids = [int(t) for t in np.unique(m.track_of[nxt])
+                               if t >= 0]
+                    triangulate.filter_tracks(m, tri_ids, o.tri, device=dev)
 
-                t0 = time.time()
-                n_merged = triangulate.merge_frame_tracks(m, nxt, o.tri,
-                                                          device=dev)
-                self.stats.time_merge += time.time() - t0
+                with self._phase("merge", "time_merge"):
+                    n_merged = triangulate.merge_frame_tracks(m, nxt, o.tri,
+                                                              device=dev)
                 accepted.append(nxt)
                 self._log(f"frame {nxt}: +{n_new} tracks, {n_ext} extended, "
                           f"{n_merged} merged, {results[nxt][1]} pnp inliers")
@@ -337,21 +359,23 @@ class IncrementalMapper:
                 self._log(f"batch of {len(batch)}: {len(accepted)} accepted, "
                           f"reg {n_reg}")
             if n_reg >= o.gba_growth * num_reg_at_gba:
-                t0 = time.time()
-                if o.refine_intrinsics and not self._intri_gba_warm:
-                    # graduated non-convexity for the first intrinsics
-                    # GBA: with EXIF-grade focal errors most residuals lie
-                    # beyond the Huber knee and LM stalls on a plateau, so
-                    # one wide-knee pass precedes the robust solve
-                    self._intri_gba_warm = True
-                    KF.kgba(m, BAOptions(max_iters=o.gba_iters, huber_px=32.0),
-                            tri_opts=None, optimize_intrinsics=True,
-                            device=dev)
-                gres = KF.kgba(m, BAOptions(max_iters=o.gba_iters, huber_px=4.0),
-                               tri_opts=o.tri,
-                               optimize_intrinsics=o.refine_intrinsics,
-                               mesh=self.mesh, device=dev)
-                self.stats.time_gba += time.time() - t0
+                with self._phase("gba", "time_gba"):
+                    if o.refine_intrinsics and not self._intri_gba_warm:
+                        # graduated non-convexity for the first intrinsics
+                        # GBA: with EXIF-grade focal errors most residuals
+                        # lie beyond the Huber knee and LM stalls on a
+                        # plateau, so one wide-knee pass precedes the
+                        # robust solve
+                        self._intri_gba_warm = True
+                        KF.kgba(m, BAOptions(max_iters=o.gba_iters,
+                                             huber_px=32.0),
+                                tri_opts=None, optimize_intrinsics=True,
+                                device=dev)
+                    gres = KF.kgba(m, BAOptions(max_iters=o.gba_iters,
+                                                huber_px=4.0),
+                                   tri_opts=o.tri,
+                                   optimize_intrinsics=o.refine_intrinsics,
+                                   mesh=self.mesh, device=dev)
                 num_reg_at_gba = n_reg
                 if gres is not None:
                     self._log(f"KGBA over {n_reg} frames: cost "
@@ -376,38 +400,39 @@ class IncrementalMapper:
         local bundles."""
         o = self.opts
         dev = self.device
-        t0 = time.time()
-        fresh = set()
-        for nxt in accepted:
-            t_ids = m.track_of[nxt]
-            t_ids = t_ids[t_ids >= 0]
-            fresh.update(int(t) for t in t_ids[m.track_angle[t_ids]
-                                               < np.deg2rad(10.0)])
-        if fresh:
-            triangulate.retriangulate(m, sorted(fresh), o.tri, device=dev)
-        self.stats.time_triangulate += time.time() - t0
+        with self._phase("triangulate", "time_triangulate"):
+            fresh = set()
+            for nxt in accepted:
+                t_ids = m.track_of[nxt]
+                t_ids = t_ids[t_ids >= 0]
+                fresh.update(int(t) for t in t_ids[m.track_angle[t_ids]
+                                                   < np.deg2rad(10.0)])
+            if fresh:
+                triangulate.retriangulate(m, sorted(fresh), o.tri,
+                                          device=dev)
 
-        t0 = time.time()
-        local = []
-        seen = set()
-        for nxt in accepted:
-            for f in self._local_frames(m, nxt):
-                if f not in seen:
-                    seen.add(f)
-                    local.append(f)
-        # LBA bounded like the reference's SetUpLBA (ba_solver.cc:358-391):
-        # residuals from local frames only, points frozen unless newly
-        # observed and still poorly triangulated (below 5 degrees)
-        nt = m.num_tracks
-        far = m.track_angle[:nt] > np.deg2rad(5.0)
-        new_obs = np.zeros(nt, bool)
-        for nxt in accepted:
-            t_ids = m.track_of[nxt]
-            new_obs[t_ids[t_ids >= 0]] = True
-        ba_glue.run_ba(m, local, BAOptions(max_iters=o.lba_iters, huber_px=4.0),
-                       obs_frames=local, freeze_tracks=far | ~new_obs,
-                       device=dev)
-        self.stats.time_lba += time.time() - t0
+        with self._phase("lba", "time_lba"):
+            local = []
+            seen = set()
+            for nxt in accepted:
+                for f in self._local_frames(m, nxt):
+                    if f not in seen:
+                        seen.add(f)
+                        local.append(f)
+            # LBA bounded like the reference's SetUpLBA
+            # (ba_solver.cc:358-391): residuals from local frames only,
+            # points frozen unless newly observed and still poorly
+            # triangulated (below 5 degrees)
+            nt = m.num_tracks
+            far = m.track_angle[:nt] > np.deg2rad(5.0)
+            new_obs = np.zeros(nt, bool)
+            for nxt in accepted:
+                t_ids = m.track_of[nxt]
+                new_obs[t_ids[t_ids >= 0]] = True
+            ba_glue.run_ba(m, local,
+                           BAOptions(max_iters=o.lba_iters, huber_px=4.0),
+                           obs_frames=local, freeze_tracks=far | ~new_obs,
+                           device=dev)
 
     def _polish_gba_rounds(self, m: SfMMap, reg_frames, tag: str, hard: bool,
                            schedule_intrinsics: bool = False):
@@ -445,73 +470,73 @@ class IncrementalMapper:
         reg_frames = list(np.nonzero(m.registered)[0])
         if len(reg_frames) < 2:
             return False
-        t0 = time.time()
-        want_polish = ((o.global_polish or o.rot_avg_polish)
-                       and len(reg_frames) >= 10)
-        hard = self.stats.corrections > 0 or want_polish
-        self.stats.polish = "off"
-        # Trial-gated rewrite: the measured-pair fixed point is set by
-        # 2-view measurement noise, and on a map already better than that
-        # it degrades the geometry.  Settle the current basin (cost_pre),
-        # try the rewrite and settle it (cost_post), keep the lower robust
-        # cost per observation.
-        pres_pre = self._polish_gba_rounds(
-            m, reg_frames, "pre", hard=self.stats.corrections > 0)
-        cost_pre = (pres_pre.final_cost / max(pres_pre.n_obs, 1)
-                    if pres_pre else None)
-        rotated = False
-        if want_polish:
-            backup = polish_backup(m)
-            if o.global_polish:
-                rotated = global_pose.global_pose_polish(m, log=self._log,
-                                                         device=dev)
-            else:
-                rotated = rot_avg.rotation_averaging_polish(m, log=self._log,
-                                                            device=dev)
-            self.stats.polish = "kept" if rotated else "skipped"
-        if rotated:
-            # retriangulate every valid track: after a global rewrite all
-            # stored positions and errors refer to the old geometry
-            triangulate.retriangulate(
-                m, np.nonzero(m.track_valid[: m.num_tracks])[0], o.tri,
-                device=dev)
-            # the rewrite invalidates the intrinsics basin: the post side
-            # re-runs the intrinsics schedule
-            pres_post = self._polish_gba_rounds(
-                m, reg_frames, "post", hard=hard,
-                schedule_intrinsics=o.refine_intrinsics)
-            cost_post = (pres_post.final_cost / max(pres_post.n_obs, 1)
-                         if pres_post else None)
-            # observation-loss guard: the post-rewrite retriangulation drops
-            # poorly fitting tracks, so cost_post averages over survivors;
-            # cap the shrinkage the comparison may ride on
-            obs_shrunk = (pres_pre is not None and pres_post is not None
-                          and pres_post.n_obs < 0.97 * pres_pre.n_obs)
-            if (cost_pre is not None and cost_post is not None
-                    and (cost_post >= cost_pre * 0.995 or obs_shrunk)):
-                polish_restore(m, backup)
-                rotated = False
-                self.stats.polish = "reverted"
-                why = (f"observation set shrank {pres_pre.n_obs} -> "
-                       f"{pres_post.n_obs}"
-                       if obs_shrunk and cost_post < cost_pre * 0.995
-                       else "the map beats the measured-edge fixed point")
-                self._log(f"global polish REVERTED: cost/obs "
-                          f"{cost_post:.4f} vs {cost_pre:.4f} pre - {why}")
-        tight = dataclasses.replace(o.tri, filter_px=o.tri.polish_px)
-        triangulate.filter_tracks(m, None, tight, device=dev)
-        # global merge sweep: duplicates that survived mapping (the two
-        # camps of a closed loop) pass the gate once GBA settled the map
-        triangulate.merge_all_tracks(m, None, o.tri, device=dev)
-        n_rt = triangulate.retriangulate(m, None, o.tri, device=dev)
-        fres = ba_glue.run_ba(
-            m, reg_frames, BAOptions(max_iters=o.gba_iters, huber_px=2.0),
-            optimize_intrinsics=o.refine_intrinsics, device=dev)
-        if fres is not None:
-            self._log(f"polish GBA final: cost {fres.initial_cost:.1f} -> "
-                      f"{fres.final_cost:.1f}")
-        triangulate.filter_tracks(m, None, tight, device=dev)
-        self.stats.time_gba += time.time() - t0
+        with self._phase("polish", "time_gba"):
+            want_polish = ((o.global_polish or o.rot_avg_polish)
+                           and len(reg_frames) >= 10)
+            hard = self.stats.corrections > 0 or want_polish
+            self.stats.polish = "off"
+            # Trial-gated rewrite: the measured-pair fixed point is set by
+            # 2-view measurement noise, and on a map already better than that
+            # it degrades the geometry.  Settle the current basin (cost_pre),
+            # try the rewrite and settle it (cost_post), keep the lower robust
+            # cost per observation.
+            pres_pre = self._polish_gba_rounds(
+                m, reg_frames, "pre", hard=self.stats.corrections > 0)
+            cost_pre = (pres_pre.final_cost / max(pres_pre.n_obs, 1)
+                        if pres_pre else None)
+            rotated = False
+            if want_polish:
+                backup = polish_backup(m)
+                if o.global_polish:
+                    rotated = global_pose.global_pose_polish(m, log=self._log,
+                                                             device=dev)
+                else:
+                    rotated = rot_avg.rotation_averaging_polish(
+                        m, log=self._log, device=dev)
+                self.stats.polish = "kept" if rotated else "skipped"
+            if rotated:
+                # retriangulate every valid track: after a global rewrite all
+                # stored positions and errors refer to the old geometry
+                triangulate.retriangulate(
+                    m, np.nonzero(m.track_valid[: m.num_tracks])[0], o.tri,
+                    device=dev)
+                # the rewrite invalidates the intrinsics basin: the post side
+                # re-runs the intrinsics schedule
+                pres_post = self._polish_gba_rounds(
+                    m, reg_frames, "post", hard=hard,
+                    schedule_intrinsics=o.refine_intrinsics)
+                cost_post = (pres_post.final_cost / max(pres_post.n_obs, 1)
+                             if pres_post else None)
+                # observation-loss guard: the post-rewrite
+                # retriangulation drops poorly fitting tracks, so
+                # cost_post averages over survivors; cap the shrinkage the
+                # comparison may ride on
+                obs_shrunk = (pres_pre is not None and pres_post is not None
+                              and pres_post.n_obs < 0.97 * pres_pre.n_obs)
+                if (cost_pre is not None and cost_post is not None
+                        and (cost_post >= cost_pre * 0.995 or obs_shrunk)):
+                    polish_restore(m, backup)
+                    rotated = False
+                    self.stats.polish = "reverted"
+                    why = (f"observation set shrank {pres_pre.n_obs} -> "
+                           f"{pres_post.n_obs}"
+                           if obs_shrunk and cost_post < cost_pre * 0.995
+                           else "the map beats the measured-edge fixed point")
+                    self._log(f"global polish REVERTED: cost/obs "
+                              f"{cost_post:.4f} vs {cost_pre:.4f} pre - {why}")
+            tight = dataclasses.replace(o.tri, filter_px=o.tri.polish_px)
+            triangulate.filter_tracks(m, None, tight, device=dev)
+            # global merge sweep: duplicates that survived mapping (the two
+            # camps of a closed loop) pass the gate once GBA settled the map
+            triangulate.merge_all_tracks(m, None, o.tri, device=dev)
+            n_rt = triangulate.retriangulate(m, None, o.tri, device=dev)
+            fres = ba_glue.run_ba(
+                m, reg_frames, BAOptions(max_iters=o.gba_iters, huber_px=2.0),
+                optimize_intrinsics=o.refine_intrinsics, device=dev)
+            if fres is not None:
+                self._log(f"polish GBA final: cost {fres.initial_cost:.1f} -> "
+                          f"{fres.final_cost:.1f}")
+            triangulate.filter_tracks(m, None, tight, device=dev)
         if n_rt:
             self._log(f"final polish: {n_rt} tracks retriangulated")
         return rotated

@@ -63,6 +63,7 @@ from ..device import full_precision
 from ..ops import linalg
 from ..utils import camera as Cam
 from ..utils import geometry as G
+from ..utils.profiling import span
 
 _BAD_RESIDUAL = 12.0  # the reference's negative-depth guard constant
 
@@ -298,66 +299,69 @@ def pack_camera_major(p: BAProblem, n_valid=None, bucket_lo: int = 8,
     obs_w = 0 and point id 0, so they vanish from every reduction.  Host
     numpy, O(n log n); every tensor of the result goes to `device` (by
     default p's) in one transfer."""
-    dev = device if device is not None else p.cam_q.device
-    oc, op = _np(p.obs_cam), _np(p.obs_pt)
-    O_full = len(oc)
-    n = O_full if n_valid is None else int(n_valid)
-    C = p.cam_q.shape[0]
-    P = p.points.shape[0]
-    slots, seg, _, cam_starts = _build_rows(
-        oc[:n].astype(np.int64), op, C, O_full, cam_width, bucket_lo)
-    Rc, Mc = slots.shape
-    flat = slots.reshape(-1)
-    real = flat < O_full
-    O2 = Rc * Mc
+    with span("xrsfm.ba.pack"):
+        dev = device if device is not None else p.cam_q.device
+        oc, op = _np(p.obs_cam), _np(p.obs_pt)
+        O_full = len(oc)
+        n = O_full if n_valid is None else int(n_valid)
+        C = p.cam_q.shape[0]
+        P = p.points.shape[0]
+        slots, seg, _, cam_starts = _build_rows(
+            oc[:n].astype(np.int64), op, C, O_full, cam_width, bucket_lo)
+        Rc, Mc = slots.shape
+        flat = slots.reshape(-1)
+        real = flat < O_full
+        O2 = Rc * Mc
 
-    def take(a):
-        a = _np(a)
-        out = np.zeros((O2,) + a.shape[1:], a.dtype)
-        out[real] = a[flat[real]]
-        return out
+        def take(a):
+            a = _np(a)
+            out = np.zeros((O2,) + a.shape[1:], a.dtype)
+            out[real] = a[flat[real]]
+            return out
 
-    new_cam = np.repeat(seg, Mc).astype(np.int64)
-    new_pt = np.zeros(O2, np.int64)
-    new_pt[real] = op[flat[real]]
-    packed = dict(obs_uv=take(p.obs_uv), obs_cam=new_cam, obs_pt=new_pt,
-                  obs_w=take(p.obs_w))  # physical padding gets weight 0
-    # point-side rows over the REAL slots of the packed table
-    real_idx = np.nonzero(real)[0]
-    nr = len(real_idx)
-    cslots, pt_seg, _, pt_starts = _build_rows(
-        new_pt[real_idx], new_cam[real_idx], P, nr, pt_width, bucket_lo)
-    if nr:
-        pt_slots = np.where(cslots < nr, real_idx[np.minimum(cslots, nr - 1)],
-                            O2).astype(np.int32)
-    else:
-        pt_slots = np.full_like(cslots, O2)
-    pt_other = np.concatenate([new_cam, [0]]).astype(np.int32)[pt_slots]
-    # static point-major copies of (uv, w), from which the point blocks
-    # are recomputed in point order every LM iteration
-    pvalid = pt_slots < O2
-    pt_uv = np.zeros(pt_slots.shape + (2,), np.float32)
-    pt_uv[pvalid] = packed["obs_uv"][pt_slots[pvalid]]
-    pt_w = np.zeros(pt_slots.shape, np.float32)
-    pt_w[pvalid] = packed["obs_w"][pt_slots[pvalid]]
-    # reverse map: camera-major slot -> flat point-major position
-    flat_pt = pt_slots.reshape(-1)
-    pt_pos = np.full(O2, flat_pt.size, np.int32)  # sentinel on padding
-    src = np.nonzero(flat_pt < O2)[0]
-    pt_pos[flat_pt[src]] = src
-    fields = {f.name: (packed[f.name] if f.name in packed
-                       else _np(getattr(p, f.name)))
-              for f in dataclasses.fields(p) if getattr(p, f.name) is not None}
-    ell_arrays = [np.arange(O2, dtype=np.int32).reshape(Rc, Mc), seg,
-                  new_pt.astype(np.int32).reshape(Rc, Mc), cam_starts,
-                  pt_slots, pt_seg, pt_other, pt_starts,
-                  pt_uv, pt_w, pt_pos.reshape(Rc, Mc)]
-    t = _transfer(list(fields.values()) + ell_arrays, dev)
-    p2 = dataclasses.replace(p, **dict(zip(fields, t)))
-    e = t[len(fields):]
-    return p2, EllIndex(cam=RowIndex(*e[:4], contig=True),
-                        pt=RowIndex(*e[4:8]), pt_uv=e[8], pt_w=e[9],
-                        pt_pos=e[10])
+        new_cam = np.repeat(seg, Mc).astype(np.int64)
+        new_pt = np.zeros(O2, np.int64)
+        new_pt[real] = op[flat[real]]
+        packed = dict(obs_uv=take(p.obs_uv), obs_cam=new_cam, obs_pt=new_pt,
+                      obs_w=take(p.obs_w))  # physical padding gets weight 0
+        # point-side rows over the REAL slots of the packed table
+        real_idx = np.nonzero(real)[0]
+        nr = len(real_idx)
+        cslots, pt_seg, _, pt_starts = _build_rows(
+            new_pt[real_idx], new_cam[real_idx], P, nr, pt_width, bucket_lo)
+        if nr:
+            pt_slots = np.where(cslots < nr,
+                                real_idx[np.minimum(cslots, nr - 1)],
+                                O2).astype(np.int32)
+        else:
+            pt_slots = np.full_like(cslots, O2)
+        pt_other = np.concatenate([new_cam, [0]]).astype(np.int32)[pt_slots]
+        # static point-major copies of (uv, w), from which the point blocks
+        # are recomputed in point order every LM iteration
+        pvalid = pt_slots < O2
+        pt_uv = np.zeros(pt_slots.shape + (2,), np.float32)
+        pt_uv[pvalid] = packed["obs_uv"][pt_slots[pvalid]]
+        pt_w = np.zeros(pt_slots.shape, np.float32)
+        pt_w[pvalid] = packed["obs_w"][pt_slots[pvalid]]
+        # reverse map: camera-major slot -> flat point-major position
+        flat_pt = pt_slots.reshape(-1)
+        pt_pos = np.full(O2, flat_pt.size, np.int32)  # sentinel on padding
+        src = np.nonzero(flat_pt < O2)[0]
+        pt_pos[flat_pt[src]] = src
+        fields = {f.name: (packed[f.name] if f.name in packed
+                           else _np(getattr(p, f.name)))
+                  for f in dataclasses.fields(p)
+                  if getattr(p, f.name) is not None}
+        ell_arrays = [np.arange(O2, dtype=np.int32).reshape(Rc, Mc), seg,
+                      new_pt.astype(np.int32).reshape(Rc, Mc), cam_starts,
+                      pt_slots, pt_seg, pt_other, pt_starts,
+                      pt_uv, pt_w, pt_pos.reshape(Rc, Mc)]
+        t = _transfer(list(fields.values()) + ell_arrays, dev)
+        p2 = dataclasses.replace(p, **dict(zip(fields, t)))
+        e = t[len(fields):]
+        return p2, EllIndex(cam=RowIndex(*e[:4], contig=True),
+                            pt=RowIndex(*e[4:8]), pt_uv=e[8], pt_w=e[9],
+                            pt_pos=e[10])
 
 
 def _gather_obs(a, slots):
@@ -760,73 +764,76 @@ def _schur_solve(ps, U, V, W, bc, bp, lam, cg_iters, cg_tol,
     back-substituted W^T dx, and in each matvec the point sum (before
     Vinv is applied) and the camera sum.  The tied space's sums act on
     reduced [C, ...] vectors and cross no shard."""
-    C, D = U.shape[0], U.shape[-1]
-    P = ps[0].points.shape[0]
-    eyeD = torch.eye(D, dtype=U.dtype, device=U.device)
-    eye3 = torch.eye(3, dtype=U.dtype, device=U.device)
-    space = _TiedSpace(ps[0].cam_kam, C) if D > 6 else _PlainSpace()
+    with span("xrsfm.ba.schur"):
+        C, D = U.shape[0], U.shape[-1]
+        P = ps[0].points.shape[0]
+        eyeD = torch.eye(D, dtype=U.dtype, device=U.device)
+        eye3 = torch.eye(3, dtype=U.dtype, device=U.device)
+        space = _TiedSpace(ps[0].cam_kam, C) if D > 6 else _PlainSpace()
 
-    # multiplicative LM damping on the block diagonals
-    Ud = U + lam * (U * eyeD) + 1e-8 * eyeD
-    Vd = V + lam * (V * eye3) + 1e-8 * eye3
-    Vinv = _inv3x3(Vd)
+        # multiplicative LM damping on the block diagonals
+        Ud = U + lam * (U * eyeD) + 1e-8 * eyeD
+        Vd = V + lam * (V * eye3) + 1e-8 * eye3
+        Vinv = _inv3x3(Vd)
 
-    def pt_sum(x):  # sum over observations of W^T x_cam, into points
-        return reduce_fn([
-            segment_sum(_mv(Ws.transpose(1, 2), x.to(Ws.device)[p.obs_cam]),
-                        p.obs_pt, P)
-            for p, Ws in zip(ps, W)])
+        def pt_sum(x):  # sum over observations of W^T x_cam, into points
+            return reduce_fn([
+                segment_sum(_mv(Ws.transpose(1, 2),
+                                x.to(Ws.device)[p.obs_cam]),
+                            p.obs_pt, P)
+                for p, Ws in zip(ps, W)])
 
-    def cam_sum(y):  # sum over observations of W y_pt, into cameras
-        return reduce_fn([
-            segment_sum(_mv(Ws, y.to(Ws.device)[p.obs_pt]), p.obs_cam, C)
-            for p, Ws in zip(ps, W)])
+        def cam_sum(y):  # sum over observations of W y_pt, into cameras
+            return reduce_fn([
+                segment_sum(_mv(Ws, y.to(Ws.device)[p.obs_pt]), p.obs_cam, C)
+                for p, Ws in zip(ps, W)])
 
-    def S_matvec(x):  # x [C, D]
-        zp = _mv(Vinv, pt_sum(x))
-        return space.proj(_mv(Ud, x) - cam_sum(zp))
+        def S_matvec(x):  # x [C, D]
+            zp = _mv(Vinv, pt_sum(x))
+            return space.proj(_mv(Ud, x) - cam_sum(zp))
 
-    # rhs = bc - W Vinv bp
-    rhs = space.proj(bc - cam_sum(_mv(Vinv, bp)))
+        # rhs = bc - W Vinv bp
+        rhs = space.proj(bc - cam_sum(_mv(Vinv, bp)))
 
-    # block-Jacobi preconditioner, LU-inverted
-    M_p, M_i = _jacobi_blocks(ps, Ud, Vinv, W, space, reduce_fn)
-    n = M_p.shape[-1]
-    Minv = linalg.solve(M_p, eyeD[:n, :n].expand(C, n, n))
-    if M_i is None:
-        def precond(x):
-            return _mv(Minv, x)
-    else:
-        Minv_i = linalg.solve(M_i, eyeD[:8, :8].expand(C, 8, 8))
+        # block-Jacobi preconditioner, LU-inverted
+        M_p, M_i = _jacobi_blocks(ps, Ud, Vinv, W, space, reduce_fn)
+        n = M_p.shape[-1]
+        Minv = linalg.solve(M_p, eyeD[:n, :n].expand(C, n, n))
+        if M_i is None:
+            def precond(x):
+                return _mv(Minv, x)
+        else:
+            Minv_i = linalg.solve(M_i, eyeD[:8, :8].expand(C, 8, 8))
 
-        def precond(x):
-            xi = _mv(Minv_i, space.reduce(x))
-            return torch.cat([_mv(Minv, x[:, :6]), xi[space.kam]], dim=1)
+            def precond(x):
+                xi = _mv(Minv_i, space.reduce(x))
+                return torch.cat([_mv(Minv, x[:, :6]), xi[space.kam]], dim=1)
 
-    dot = space.dot
-    x = torch.zeros_like(rhs)
-    r_ = rhs
-    z_ = precond(r_)
-    pk = z_
-    rz = dot(r_, z_)
-    bnorm = torch.sqrt(dot(rhs, rhs)) + 1e-30
-    for _ in range(cg_iters):
-        if not bool(torch.sqrt(dot(r_, r_)) > cg_tol * bnorm):
-            break
-        COUNTS["cg_iters"] += 1
-        Ap = S_matvec(pk)
-        denom = dot(pk, Ap)
-        alpha = rz / torch.where(denom.abs() < 1e-30, 1e-30, denom)
-        x = x + alpha * pk
-        r_ = r_ - alpha * Ap
+    with span("xrsfm.ba.pcg"):
+        dot = space.dot
+        x = torch.zeros_like(rhs)
+        r_ = rhs
         z_ = precond(r_)
-        rz_new = dot(r_, z_)
-        beta = rz_new / torch.where(rz.abs() < 1e-30, 1e-30, rz)
-        pk = z_ + beta * pk
-        rz = rz_new
+        pk = z_
+        rz = dot(r_, z_)
+        bnorm = torch.sqrt(dot(rhs, rhs)) + 1e-30
+        for _ in range(cg_iters):
+            if not bool(torch.sqrt(dot(r_, r_)) > cg_tol * bnorm):
+                break
+            COUNTS["cg_iters"] += 1
+            Ap = S_matvec(pk)
+            denom = dot(pk, Ap)
+            alpha = rz / torch.where(denom.abs() < 1e-30, 1e-30, denom)
+            x = x + alpha * pk
+            r_ = r_ - alpha * Ap
+            z_ = precond(r_)
+            rz_new = dot(r_, z_)
+            beta = rz_new / torch.where(rz.abs() < 1e-30, 1e-30, rz)
+            pk = z_ + beta * pk
+            rz = rz_new
 
-    # back-substitute the points: dp = Vinv (bp - W^T dx_c)
-    return x, _mv(Vinv, bp - pt_sum(x))
+        # back-substitute the points: dp = Vinv (bp - W^T dx_c)
+        return x, _mv(Vinv, bp - pt_sum(x))
 
 
 # ---------------------------------------------------------------------------
@@ -997,168 +1004,170 @@ def _schur_solve_ell(p: BAProblem, ell: EllIndex, U, V, bc, bp, Jc, Jp, w,
     float32.  The PCG loop runs on the host (one scalar read an
     iteration) and carries Σ alpha ypt(p_k), so the back-substitution
     needs no further point sum.  Returns (dx_c [C,D], dx_p [P,3])."""
-    C = p.cam_q.shape[0]
-    P = p.points.shape[0]
-    D = U.shape[-1]
-    with_intri = D > 6
-    red = reduce_fn if reduce_fn is not None else _identity
-    eyeD = torch.eye(D, dtype=U.dtype, device=U.device)
-    eye3 = torch.eye(3, dtype=U.dtype, device=U.device)
-    Ud = U + lam * (U * eyeD) + 1e-8 * eyeD
-    Vd = V + lam * (V * eye3) + 1e-8 * eye3
-    Vinv = _inv3x3(Vd)
-    L = _chol3x3(Vinv)  # [P,3,3]
+    with span("xrsfm.ba.schur"):
+        C = p.cam_q.shape[0]
+        P = p.points.shape[0]
+        D = U.shape[-1]
+        with_intri = D > 6
+        red = reduce_fn if reduce_fn is not None else _identity
+        eyeD = torch.eye(D, dtype=U.dtype, device=U.device)
+        eye3 = torch.eye(3, dtype=U.dtype, device=U.device)
+        Ud = U + lam * (U * eyeD) + 1e-8 * eyeD
+        Vd = V + lam * (V * eye3) + 1e-8 * eye3
+        Vinv = _inv3x3(Vd)
+        L = _chol3x3(Vinv)  # [P,3,3]
 
-    cd = compute_dtype
-    ptm = (~p.fix_pt).to(U.dtype)
-    Rc, Mc = ell.cam.slots.shape
-    Rp, Lw = ell.pt.slots.shape
-    row_native = (Jc if Jc is not None else cam_w).dim() == 4
-    pt_major = (row_native and pt_gathers is not None
-                and ell.pt_pos is not None)
-    weighted = cam_w is not None and pt_major
-    m_post = _cam_colmask(p, with_intri) if weighted else None  # [C,D]
-    Z = Zpt = Jc_flat = None
-    if row_native:
-        if weighted:
-            Jc16 = cam_w.to(cd)
-        else:
-            mg = _cam_colmask(p, with_intri).to(cd)[ell.cam.seg]
-            Jc16 = Jc.to(cd) * mg[:, None, None, :]  # [Rc,Mc,2,D]
-        if not pt_major:
-            wm = (w * ptm[ell.cam.other]).to(cd)
-            Z = (Jp.to(cd) @ L.to(cd)[ell.cam.other]) * wm[..., None, None]
-    else:
-        wm = (w * ptm[p.obs_pt]).to(cd)
-        Z_flat = (Jp.to(cd) @ L.to(cd)[p.obs_pt]) * wm[:, None, None]
-        mg = _cam_colmask(p, with_intri).to(cd)[p.obs_cam]  # [O,D]
-        Jc_flat = Jc.to(cd) * mg[:, None, :]  # [O,2,D]
-        # in the flat layout the slot tables index the ORIGINAL table
-        Zpt = _gather_rows(Z_flat, ell.pt)  # [Rp,Lw,2,3]
-        Jc16 = _gather_rows(Jc_flat, ell.cam)  # [Rc,Mc,2,D]
-        Z = _gather_rows(Z_flat, ell.cam)  # [Rc,Mc,2,3]
-    if Zpt is None:
-        if pt_gathers is not None:
-            # Zpt = Jp_pt L w from the point-order gathers: L and the
-            # fix_pt mask are row-uniform in point order
-            Jpg, spg = pt_gathers
-            w_or_sw = spg[..., 0].float()
-            if weighted:  # √w here when cam_w carries the other √w
-                w_or_sw = torch.sqrt(w_or_sw.clamp_min(0.0))
-            wrow = (w_or_sw * ptm[ell.pt.seg][:, None]).to(cd)
-            Zpt = (Jpg.to(cd) @ L.to(cd)[ell.pt.seg][:, None]) \
-                * wrow[..., None, None]
-        else:
-            Zpt = _gather_obs(Z.reshape(-1, 2, 3), ell.pt.slots)
-    space = _TiedSpace(p.cam_kam, C) if with_intri else _PlainSpace()
-
-    def ypt_reduce(x):
-        """yp[p] = Σ_{o in p} Y_oᵀ x_cam(o) = Σ Z_oᵀ (Jc_o x)  -> [P,3]"""
+        cd = compute_dtype
+        ptm = (~p.fix_pt).to(U.dtype)
+        Rc, Mc = ell.cam.slots.shape
+        Rp, Lw = ell.pt.slots.shape
+        row_native = (Jc if Jc is not None else cam_w).dim() == 4
+        pt_major = (row_native and pt_gathers is not None
+                    and ell.pt_pos is not None)
+        weighted = cam_w is not None and pt_major
+        m_post = _cam_colmask(p, with_intri) if weighted else None  # [C,D]
+        Z = Zpt = Jc_flat = None
         if row_native:
-            a = _mv(Jc16.reshape(Rc, Mc * 2, D), x.to(cd)[ell.cam.seg])
-            apt = _gather_obs(a.reshape(-1, 2), ell.pt.slots)
+            if weighted:
+                Jc16 = cam_w.to(cd)
+            else:
+                mg = _cam_colmask(p, with_intri).to(cd)[ell.cam.seg]
+                Jc16 = Jc.to(cd) * mg[:, None, None, :]  # [Rc,Mc,2,D]
+            if not pt_major:
+                wm = (w * ptm[ell.cam.other]).to(cd)
+                Z = (Jp.to(cd) @ L.to(cd)[ell.cam.other]) * wm[..., None, None]
         else:
-            a = _mv(Jc_flat, x.to(cd)[p.obs_cam])
-            apt = _gather_rows(a, ell.pt)  # [Rp,Lw,2]
-        yrow = _mv(Zpt.float().reshape(Rp, Lw * 2, 3).transpose(1, 2),
-                   apt.float().reshape(Rp, Lw * 2))
-        return red(segment_sum(yrow, ell.pt.seg, P))
+            wm = (w * ptm[p.obs_pt]).to(cd)
+            Z_flat = (Jp.to(cd) @ L.to(cd)[p.obs_pt]) * wm[:, None, None]
+            mg = _cam_colmask(p, with_intri).to(cd)[p.obs_cam]  # [O,D]
+            Jc_flat = Jc.to(cd) * mg[:, None, :]  # [O,2,D]
+            # in the flat layout the slot tables index the ORIGINAL table
+            Zpt = _gather_rows(Z_flat, ell.pt)  # [Rp,Lw,2,3]
+            Jc16 = _gather_rows(Jc_flat, ell.cam)  # [Rc,Mc,2,D]
+            Z = _gather_rows(Z_flat, ell.cam)  # [Rc,Mc,2,3]
+        if Zpt is None:
+            if pt_gathers is not None:
+                # Zpt = Jp_pt L w from the point-order gathers: L and the
+                # fix_pt mask are row-uniform in point order
+                Jpg, spg = pt_gathers
+                w_or_sw = spg[..., 0].float()
+                if weighted:  # √w here when cam_w carries the other √w
+                    w_or_sw = torch.sqrt(w_or_sw.clamp_min(0.0))
+                wrow = (w_or_sw * ptm[ell.pt.seg][:, None]).to(cd)
+                Zpt = (Jpg.to(cd) @ L.to(cd)[ell.pt.seg][:, None]) \
+                    * wrow[..., None, None]
+            else:
+                Zpt = _gather_obs(Z.reshape(-1, 2, 3), ell.pt.slots)
+        space = _TiedSpace(p.cam_kam, C) if with_intri else _PlainSpace()
 
-    def cam_reduce(b):
-        """Σ_{o in c} Jc_oᵀ b_o -> [C,D], masked per camera if weighted"""
-        trow = _mv(Jc16.float().reshape(Rc, Mc * 2, D).transpose(1, 2),
-                   b.float().reshape(Rc, Mc * 2))
-        out = red(segment_sum(trow, ell.cam.seg, C))
-        return out * m_post if weighted else out
+        def ypt_reduce(x):
+            """yp[p] = Σ_{o in p} Y_oᵀ x_cam(o) = Σ Z_oᵀ (Jc_o x)  -> [P,3]"""
+            if row_native:
+                a = _mv(Jc16.reshape(Rc, Mc * 2, D), x.to(cd)[ell.cam.seg])
+                apt = _gather_obs(a.reshape(-1, 2), ell.pt.slots)
+            else:
+                a = _mv(Jc_flat, x.to(cd)[p.obs_cam])
+                apt = _gather_rows(a, ell.pt)  # [Rp,Lw,2]
+            yrow = _mv(Zpt.float().reshape(Rp, Lw * 2, 3).transpose(1, 2),
+                       apt.float().reshape(Rp, Lw * 2))
+            return red(segment_sum(yrow, ell.pt.seg, P))
 
-    def ycam_reduce(zp):
-        """t[c] = Σ_{o in c} Y_o z_pt(o) = Σ Jc_oᵀ (Z_o z)  -> [C,D]"""
+        def cam_reduce(b):
+            """Σ_{o in c} Jc_oᵀ b_o -> [C,D], masked per camera if weighted"""
+            trow = _mv(Jc16.float().reshape(Rc, Mc * 2, D).transpose(1, 2),
+                       b.float().reshape(Rc, Mc * 2))
+            out = red(segment_sum(trow, ell.cam.seg, C))
+            return out * m_post if weighted else out
+
+        def ycam_reduce(zp):
+            """t[c] = Σ_{o in c} Y_o z_pt(o) = Σ Jc_oᵀ (Z_o z)  -> [C,D]"""
+            if pt_major:
+                # z is row-uniform in point order; only the [2]-vector result
+                # crosses the layouts
+                b_pt = _mv(Zpt.reshape(Rp, Lw * 2, 3), zp[ell.pt.seg].to(cd))
+                b = _gather_obs(b_pt.reshape(-1, 2), ell.pt_pos)
+            else:
+                b = _mv(Z, zp[ell.cam.other].to(cd))
+            return cam_reduce(b)
+
+        def S_matvec(x, ypx):
+            return space.proj(_mv(Ud, x) - ycam_reduce(ypx))
+
+        # rhs = bc - Σ_o Y_o (Lᵀ bp)_pt(o); the preconditioner needs the
+        # per-slot 2x2 Gram of Z.  Point-major: both cross to the camera rows
+        # in one 6-wide payload gather.
+        u = _mv(L.transpose(1, 2), bp)  # Lᵀ bp [P,3]
         if pt_major:
-            # z is row-uniform in point order; only the [2]-vector result
-            # crosses the layouts
-            b_pt = _mv(Zpt.reshape(Rp, Lw * 2, 3), zp[ell.pt.seg].to(cd))
-            b = _gather_obs(b_pt.reshape(-1, 2), ell.pt_pos)
+            b_pt = _mv(Zpt.reshape(Rp, Lw * 2, 3), u[ell.pt.seg].to(cd)) \
+                .reshape(Rp, Lw, 2)
+            Gz_pt = Zpt.float() @ Zpt.float().transpose(-1, -2)  # [Rp,Lw,2,2]
+            payload = torch.cat([b_pt.to(cd), Gz_pt.to(cd).reshape(Rp, Lw, 4)],
+                                dim=-1)
+            pay = _gather_obs(payload.reshape(-1, 6), ell.pt_pos)  # [Rc,Mc,6]
+            Gz = pay[..., 2:].reshape(Rc, Mc, 2, 2)
+            rhs = space.proj(bc - cam_reduce(pay[..., :2]))
         else:
-            b = _mv(Z, zp[ell.cam.other].to(cd))
-        return cam_reduce(b)
+            rhs = space.proj(bc - ycam_reduce(u))
+            Gz = Z.float() @ Z.float().transpose(-1, -2)  # [Rc,Mc,2,2]
+        Hz = (Gz.to(cd).float() @ Jc16.float()).to(cd)  # [Rc,Mc,2,D]
+        S_rows = Jc16.float().reshape(Rc, Mc * 2, D).transpose(1, 2) \
+            @ Hz.float().reshape(Rc, Mc * 2, D)  # [Rc,D,D]
+        corr = red(segment_sum(S_rows, ell.cam.seg, C))
+        if weighted:  # keep masked blocks exactly Ud's (SPD)
+            corr = corr * (m_post[:, :, None] * m_post[:, None, :])
+        Sdiag = Ud - corr + 1e-7 * eyeD
 
-    def S_matvec(x, ypx):
-        return space.proj(_mv(Ud, x) - ycam_reduce(ypx))
+        def inverse(M):
+            # batched LU, as _schur_solve inverts its Jacobi blocks (the JAX
+            # package's closed-form _inv_spd avoids XLA's batched LU on a TPU,
+            # and costs about 75 small launches a 6x6 batch here)
+            n = M.shape[-1]
+            return linalg.solve(M, eyeD[:n, :n].expand(M.shape[0], n, n))
 
-    # rhs = bc - Σ_o Y_o (Lᵀ bp)_pt(o); the preconditioner needs the
-    # per-slot 2x2 Gram of Z.  Point-major: both cross to the camera rows
-    # in one 6-wide payload gather.
-    u = _mv(L.transpose(1, 2), bp)  # Lᵀ bp [P,3]
-    if pt_major:
-        b_pt = _mv(Zpt.reshape(Rp, Lw * 2, 3), u[ell.pt.seg].to(cd)) \
-            .reshape(Rp, Lw, 2)
-        Gz_pt = Zpt.float() @ Zpt.float().transpose(-1, -2)  # [Rp,Lw,2,2]
-        payload = torch.cat([b_pt.to(cd), Gz_pt.to(cd).reshape(Rp, Lw, 4)],
-                            dim=-1)
-        pay = _gather_obs(payload.reshape(-1, 6), ell.pt_pos)  # [Rc,Mc,6]
-        Gz = pay[..., 2:].reshape(Rc, Mc, 2, 2)
-        rhs = space.proj(bc - cam_reduce(pay[..., :2]))
-    else:
-        rhs = space.proj(bc - ycam_reduce(u))
-        Gz = Z.float() @ Z.float().transpose(-1, -2)  # [Rc,Mc,2,2]
-    Hz = (Gz.to(cd).float() @ Jc16.float()).to(cd)  # [Rc,Mc,2,D]
-    S_rows = Jc16.float().reshape(Rc, Mc * 2, D).transpose(1, 2) \
-        @ Hz.float().reshape(Rc, Mc * 2, D)  # [Rc,D,D]
-    corr = red(segment_sum(S_rows, ell.cam.seg, C))
-    if weighted:  # keep masked blocks exactly Ud's (SPD)
-        corr = corr * (m_post[:, :, None] * m_post[:, None, :])
-    Sdiag = Ud - corr + 1e-7 * eyeD
+        if with_intri:
+            # a pose block per camera and an intrinsic block per block
+            Minv_p = inverse(Sdiag[:, :6, :6])
+            Minv_i = inverse(segment_sum(Sdiag[:, 6:, 6:], space.kam, C)
+                             + 1e-7 * eyeD[:8, :8])
 
-    def inverse(M):
-        # batched LU, as _schur_solve inverts its Jacobi blocks (the JAX
-        # package's closed-form _inv_spd avoids XLA's batched LU on a TPU,
-        # and costs about 75 small launches a 6x6 batch here)
-        n = M.shape[-1]
-        return linalg.solve(M, eyeD[:n, :n].expand(M.shape[0], n, n))
+            def precond(x):
+                xi = _mv(Minv_i, space.reduce(x))
+                return torch.cat([_mv(Minv_p, x[:, :6]), xi[space.kam]], dim=1)
+        else:
+            Minv = inverse(Sdiag)
 
-    if with_intri:
-        # a pose block per camera and an intrinsic block per block
-        Minv_p = inverse(Sdiag[:, :6, :6])
-        Minv_i = inverse(segment_sum(Sdiag[:, 6:, 6:], space.kam, C)
-                         + 1e-7 * eyeD[:8, :8])
+            def precond(x):
+                return _mv(Minv, x)
 
-        def precond(x):
-            xi = _mv(Minv_i, space.reduce(x))
-            return torch.cat([_mv(Minv_p, x[:, :6]), xi[space.kam]], dim=1)
-    else:
-        Minv = inverse(Sdiag)
-
-        def precond(x):
-            return _mv(Minv, x)
-
-    dot = space.dot
-    x = torch.zeros_like(rhs)
-    r_ = rhs
-    z_ = precond(r_)
-    pk = z_
-    rz = dot(r_, z_)
-    bnorm = torch.sqrt(dot(rhs, rhs)) + 1e-30
-    ypx = rhs.new_zeros((P, 3))
-    for _ in range(cg_iters):
-        if not bool(torch.sqrt(dot(r_, r_)) > cg_tol * bnorm):
-            break
-        COUNTS["cg_iters"] += 1
-        # the matvec's point sum is ypt(pk); ypt(x) = Σ alpha_k ypt(p_k)
-        # by linearity (x starts at 0), for the back-substitution
-        ypp = ypt_reduce(pk)
-        Ap = S_matvec(pk, ypp)
-        denom = dot(pk, Ap)
-        alpha = rz / torch.where(denom.abs() < 1e-30, 1e-30, denom)
-        x = x + alpha * pk
-        ypx = ypx + alpha * ypp
-        r_ = r_ - alpha * Ap
+    with span("xrsfm.ba.pcg"):
+        dot = space.dot
+        x = torch.zeros_like(rhs)
+        r_ = rhs
         z_ = precond(r_)
-        rz_new = dot(r_, z_)
-        beta = rz_new / torch.where(rz.abs() < 1e-30, 1e-30, rz)
-        pk = z_ + beta * pk
-        rz = rz_new
-    # dp = V⁻¹ bp - L Σ_{o in p} Y_oᵀ dx_cam(o)
-    return x, _mv(Vinv, bp) - _mv(L, ypx)
+        pk = z_
+        rz = dot(r_, z_)
+        bnorm = torch.sqrt(dot(rhs, rhs)) + 1e-30
+        ypx = rhs.new_zeros((P, 3))
+        for _ in range(cg_iters):
+            if not bool(torch.sqrt(dot(r_, r_)) > cg_tol * bnorm):
+                break
+            COUNTS["cg_iters"] += 1
+            # the matvec's point sum is ypt(pk); ypt(x) = Σ alpha_k ypt(p_k)
+            # by linearity (x starts at 0), for the back-substitution
+            ypp = ypt_reduce(pk)
+            Ap = S_matvec(pk, ypp)
+            denom = dot(pk, Ap)
+            alpha = rz / torch.where(denom.abs() < 1e-30, 1e-30, denom)
+            x = x + alpha * pk
+            ypx = ypx + alpha * ypp
+            r_ = r_ - alpha * Ap
+            z_ = precond(r_)
+            rz_new = dot(r_, z_)
+            beta = rz_new / torch.where(rz.abs() < 1e-30, 1e-30, rz)
+            pk = z_ + beta * pk
+            rz = rz_new
+        # dp = V⁻¹ bp - L Σ_{o in p} Y_oᵀ dx_cam(o)
+        return x, _mv(Vinv, bp) - _mv(L, ypx)
 
 
 # ---------------------------------------------------------------------------
@@ -1387,7 +1396,7 @@ def solve_ba(p: BAProblem, opts: BAOptions = BAOptions(),
         COUNTS[f"intri_solves_{dev}"] += 1
     if ell is not None and ell.cam.contig:
         COUNTS[f"row_solves_{dev}"] += 1
-    with full_precision():
+    with span("xrsfm.ba.solve"), full_precision():
         if ell is None:
             return _solve(p, opts)
         return _solve_ell(p, opts, ell)
@@ -1399,10 +1408,12 @@ def _solve(p: BAProblem, opts: BAOptions):
         return _robust_cost_and_weight(r, z, prob.obs_w, opts.huber_px)[0]
 
     def step(prob, lam):
-        r, z, Jc, Jp = _residuals_and_jacobians(
-            prob, with_intri=opts.optimize_intrinsics)
-        _, w = _robust_cost_and_weight(r, z, prob.obs_w, opts.huber_px)
-        U, V, W, bc, bp = _build_normal_blocks([prob], [r], [Jc], [Jp], [w])
+        with span("xrsfm.ba.rows"):
+            r, z, Jc, Jp = _residuals_and_jacobians(
+                prob, with_intri=opts.optimize_intrinsics)
+            _, w = _robust_cost_and_weight(r, z, prob.obs_w, opts.huber_px)
+            U, V, W, bc, bp = _build_normal_blocks([prob], [r], [Jc], [Jp],
+                                                   [w])
         return _schur_solve([prob], U, V, W, bc, bp, lam, opts.cg_iters,
                             opts.cg_tol)
 
@@ -1425,17 +1436,21 @@ def _solve_ell(p: BAProblem, opts: BAOptions, ell: EllIndex):
 
     def step(prob, lam):
         Jc = Jp = w = camw = None
-        if row_native:
-            # the camera side from the camera rows, the point side
-            # recomputed in point order; √w Jc shared with the Schur solve
-            _, U, bc, camw = cam_rows(prob, ell, opts.huber_px, with_intri)
-            V, bp, ptg = pt_rows(prob, ell, opts.huber_px)
-        else:
-            r, z, Jc, Jp = _residuals_and_jacobians(prob, with_intri)
-            _, w = _robust_cost_and_weight(r, z, prob.obs_w, opts.huber_px)
-            U, V, bc, bp, ptg = _build_normal_blocks_ell(
-                prob, ell, r, Jc, Jp, w, return_pt_gathers=True,
-                pt_dtype=f32)
+        with span("xrsfm.ba.rows"):
+            if row_native:
+                # the camera side from the camera rows, the point side
+                # recomputed in point order; √w Jc shared with the Schur
+                # solve
+                _, U, bc, camw = cam_rows(prob, ell, opts.huber_px,
+                                          with_intri)
+                V, bp, ptg = pt_rows(prob, ell, opts.huber_px)
+            else:
+                r, z, Jc, Jp = _residuals_and_jacobians(prob, with_intri)
+                _, w = _robust_cost_and_weight(r, z, prob.obs_w,
+                                               opts.huber_px)
+                U, V, bc, bp, ptg = _build_normal_blocks_ell(
+                    prob, ell, r, Jc, Jp, w, return_pt_gathers=True,
+                    pt_dtype=f32)
         return _schur_solve_ell(prob, ell, U, V, bc, bp, Jc, Jp, w, lam,
                                 opts.cg_iters, opts.cg_tol,
                                 compute_dtype=f32, pt_gathers=ptg,
@@ -1446,37 +1461,47 @@ def _solve_ell(p: BAProblem, opts: BAOptions, ell: EllIndex):
 
 def _lm(p: BAProblem, opts: BAOptions, cost_of, step):
     """The LM loop: step(problem, lambda) -> (dx_c, dx_p), accepted when
-    cost_of the candidate is lower."""
-    c0 = cost_of(p)
+    cost_of the candidate is lower.  Each iteration is a span
+    xrsfm.ba.lm_step: the step's spans (rows, schur, pcg), then
+    xrsfm.ba.cost around the candidate's cost, the accept and the stop
+    test's read."""
+    with span("xrsfm.ba.cost"):
+        c0 = cost_of(p)
     cost = c0
     lam = torch.tensor(opts.lam_init, dtype=p.cam_q.dtype,
                        device=p.cam_q.device)
     it = 0
-    while it < opts.max_iters:
-        COUNTS["lm_iters"] += 1
-        dx_c, dx_p = step(p, lam)
-        cand = _apply_step(p, dx_c, dx_p)
-        new_cost = cost_of(cand)
-        accept = new_cost < cost
-        p = dataclasses.replace(
-            p,
-            cam_q=torch.where(accept, cand.cam_q, p.cam_q),
-            cam_t=torch.where(accept, cand.cam_t, p.cam_t),
-            cam_intri=(torch.where(accept, cand.cam_intri, p.cam_intri)
-                       if opts.optimize_intrinsics else p.cam_intri),
-            points=torch.where(accept, cand.points, p.points),
-        )
-        cost2 = torch.where(accept, new_cost, cost)
-        lam2 = torch.where(accept, lam * opts.lam_down, lam * opts.lam_up)
-        lam2 = lam2.clamp(1e-10, opts.lam_max)
-        rel = (cost - cost2).abs() / cost.clamp_min(1e-12)
-        # early stop only when damping is back near nominal: a tiny
-        # accepted step at high lambda is a plateau, not convergence
-        done = accept & (rel < 1e-6) & (lam <= 10.0 * opts.lam_init)
-        it += 1
-        cost, lam = cost2, lam2
-        if bool(done):
-            break
+    done = False
+    while it < opts.max_iters and not done:
+        with span("xrsfm.ba.lm_step"):
+            COUNTS["lm_iters"] += 1
+            dx_c, dx_p = step(p, lam)
+            with span("xrsfm.ba.cost"):
+                cand = _apply_step(p, dx_c, dx_p)
+                new_cost = cost_of(cand)
+                accept = new_cost < cost
+                p = dataclasses.replace(
+                    p,
+                    cam_q=torch.where(accept, cand.cam_q, p.cam_q),
+                    cam_t=torch.where(accept, cand.cam_t, p.cam_t),
+                    cam_intri=(torch.where(accept, cand.cam_intri,
+                                           p.cam_intri)
+                               if opts.optimize_intrinsics
+                               else p.cam_intri),
+                    points=torch.where(accept, cand.points, p.points),
+                )
+                cost2 = torch.where(accept, new_cost, cost)
+                lam2 = torch.where(accept, lam * opts.lam_down,
+                                   lam * opts.lam_up)
+                lam2 = lam2.clamp(1e-10, opts.lam_max)
+                rel = (cost - cost2).abs() / cost.clamp_min(1e-12)
+                # early stop only when damping is back near nominal: a
+                # tiny accepted step at high lambda is a plateau, not
+                # convergence
+                done = bool(accept & (rel < 1e-6)
+                            & (lam <= 10.0 * opts.lam_init))
+                it += 1
+                cost, lam = cost2, lam2
     info = dict(initial_cost=float(c0), final_cost=float(cost), iters=it,
                 lam=float(lam))
     return p, info

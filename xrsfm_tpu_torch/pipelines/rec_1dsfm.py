@@ -15,7 +15,6 @@ the COLMAP model.
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import Optional
 
 import numpy as np
@@ -24,6 +23,7 @@ from ..base.colmap_bridge import map_to_colmap
 from ..device import resolve_device
 from ..mapper import IncrementalMapper, MapperOptions
 from ..utils import io_colmap as IOC
+from ..utils.profiling import span
 from . import run_reconstruction as RR
 
 
@@ -32,38 +32,41 @@ def main(bin_dir: str, camera_info_path: str, output_dir: str,
          device="cuda"):
     """Run the 1DSfM regime on `device`; returns the map, or None when
     reconstruction fails.  stats, when given, receives the mapper's
-    MapperStats and the seconds.  n_devices > 1 shards the global BA
-    solves, intrinsics-refining ones included, over that many devices
-    (RuntimeError when fewer exist)."""
+    MapperStats and the seconds (the span xrsfm.reconstruct).
+    n_devices > 1 shards the global BA solves, intrinsics-refining ones
+    included, over that many devices (RuntimeError when fewer exist)."""
     dev = resolve_device(device)
-    t0 = time.time()
-    opts = MapperOptions(n_devices=n_devices)
-    # reference th_rpe_gba = 4 px for internet scenes (rec_1dsfm.cc:88):
-    # the final-polish gate; the growth-time filter keeps 16 px, since
-    # genuine tracks reproject several px off until the intrinsics are
-    # refined
-    opts.tri.polish_px = 4.0
-    # noisy per-image EXIF focals, distortion starting at 0
-    # (rec_1dsfm.cc:46-55): GBA refines camera_param
-    opts.refine_intrinsics = True
-    opts.global_polish = True
-    # registration solves PnP over a focal-scale grid and writes the
-    # winner back (mapper/register)
-    opts.reg = dataclasses.replace(
-        opts.reg, focal_scales=(0.85, 0.925, 1.0, 1.08, 1.16))
-    mapper = IncrementalMapper(opts, device=dev)
-    name2cid, cams = IOC.read_camera_info(camera_info_path)
-    m = RR.build_map(bin_dir, camera_per_image=cams, name2cid=name2cid)
-    ok = mapper.reconstruct(m)
+    with span("xrsfm.reconstruct") as rec:
+        opts = MapperOptions(n_devices=n_devices)
+        # reference th_rpe_gba = 4 px for internet scenes (rec_1dsfm.cc:88):
+        # the final-polish gate; the growth-time filter keeps 16 px, since
+        # genuine tracks reproject several px off until the intrinsics are
+        # refined
+        opts.tri.polish_px = 4.0
+        # noisy per-image EXIF focals, distortion starting at 0
+        # (rec_1dsfm.cc:46-55): GBA refines camera_param
+        opts.refine_intrinsics = True
+        opts.global_polish = True
+        # registration solves PnP over a focal-scale grid and writes the
+        # winner back (mapper/register)
+        opts.reg = dataclasses.replace(
+            opts.reg, focal_scales=(0.85, 0.925, 1.0, 1.08, 1.16))
+        mapper = IncrementalMapper(opts, device=dev)
+        name2cid, cams = IOC.read_camera_info(camera_info_path)
+        with span("xrsfm.reconstruct.load"):
+            m = RR.build_map(bin_dir, camera_per_image=cams,
+                             name2cid=name2cid)
+        ok = mapper.reconstruct(m)
+        if stats is not None:
+            stats["mapper"] = mapper.stats
+        if not ok:
+            print("[rec_1dsfm] reconstruction failed", flush=True)
+            return None
+        with span("xrsfm.reconstruct.write"):
+            n_img, n_pts = map_to_colmap(m, output_dir)
     if stats is not None:
-        stats["mapper"] = mapper.stats
-    if not ok:
-        print("[rec_1dsfm] reconstruction failed", flush=True)
-        return None
-    n_img, n_pts = map_to_colmap(m, output_dir)
-    if stats is not None:
-        stats["seconds"] = time.time() - t0
+        stats["seconds"] = rec.seconds
     print(f"[rec_1dsfm] {n_img} images, {n_pts} points in "
-          f"{time.time() - t0:.1f}s "
+          f"{rec.seconds:.1f}s "
           f"({int(np.count_nonzero(m.registered))} registered)", flush=True)
     return m

@@ -14,7 +14,6 @@ times.txt.
 from __future__ import annotations
 
 import os
-import time
 from typing import Optional
 
 import numpy as np
@@ -23,6 +22,7 @@ from ..base.colmap_bridge import map_to_colmap, write_trajectory
 from ..device import resolve_device
 from ..mapper import IncrementalMapper, MapperOptions
 from ..utils import io_colmap as IOC
+from ..utils.profiling import span
 from . import run_reconstruction as RR
 
 # reference: rec_kitti.cc:24-30, the three KITTI calibrations
@@ -60,40 +60,45 @@ def main(bin_dir: str, seq_name: str, output_dir: str,
          device="cuda"):
     """Run the sequence; returns the map, or None when reconstruction
     fails.  stats, when given, receives the mapper's MapperStats and the
-    seconds."""
+    seconds (the span xrsfm.reconstruct)."""
     dev = resolve_device(device)
-    t0 = time.time()
-    os.makedirs(output_dir, exist_ok=True)
-    # a camera.txt in the workspace overrides the built-in table
-    # (recalibrated sequences and non-KITTI captures)
-    ws_cam = os.path.join(bin_dir, "camera.txt")
-    cam_txt = os.path.join(output_dir, "camera.txt")
-    if os.path.exists(ws_cam):
-        cam_txt = ws_cam
-    else:
-        params = camera_for_sequence(int(seq_name))
-        with open(cam_txt, "w") as f:
-            f.write(f"0 PINHOLE 1241 376 {params[0]} {params[1]} "
-                    f"{params[2]} {params[3]}\n")
-    opts = MapperOptions()
-    opts.correct_pose = True  # the KITTI path corrects drift
-    # sequential circuits are the drift-basin regime of the global polish
-    opts.global_polish = True
-    mapper = IncrementalMapper(opts, device=dev)
-    m = RR.build_map(bin_dir, cam_txt)
-    ok = mapper.reconstruct(m)
+    with span("xrsfm.reconstruct") as rec:
+        os.makedirs(output_dir, exist_ok=True)
+        # a camera.txt in the workspace overrides the built-in table
+        # (recalibrated sequences and non-KITTI captures)
+        ws_cam = os.path.join(bin_dir, "camera.txt")
+        cam_txt = os.path.join(output_dir, "camera.txt")
+        if os.path.exists(ws_cam):
+            cam_txt = ws_cam
+        else:
+            params = camera_for_sequence(int(seq_name))
+            with open(cam_txt, "w") as f:
+                f.write(f"0 PINHOLE 1241 376 {params[0]} {params[1]} "
+                        f"{params[2]} {params[3]}\n")
+        opts = MapperOptions()
+        opts.correct_pose = True  # the KITTI path corrects drift
+        # sequential circuits are the drift-basin regime of the global
+        # polish
+        opts.global_polish = True
+        mapper = IncrementalMapper(opts, device=dev)
+        with span("xrsfm.reconstruct.load"):
+            m = RR.build_map(bin_dir, cam_txt)
+        ok = mapper.reconstruct(m)
+        if stats is not None:
+            stats["mapper"] = mapper.stats
+        if not ok:
+            print("[rec_kitti] reconstruction failed", flush=True)
+            return None
+        with span("xrsfm.reconstruct.write"):
+            map_to_colmap(m, output_dir)
+            stamps = None
+            if timestamp_path and os.path.exists(timestamp_path):
+                stamps = frame_timestamps(
+                    m.names, IOC.load_timestamps(timestamp_path))
+            write_trajectory(m, os.path.join(output_dir, f"{seq_name}.txt"),
+                             stamps)
     if stats is not None:
-        stats["mapper"] = mapper.stats
-    if not ok:
-        print("[rec_kitti] reconstruction failed", flush=True)
-        return None
-    map_to_colmap(m, output_dir)
-    stamps = None
-    if timestamp_path and os.path.exists(timestamp_path):
-        stamps = frame_timestamps(m.names, IOC.load_timestamps(timestamp_path))
-    write_trajectory(m, os.path.join(output_dir, f"{seq_name}.txt"), stamps)
-    if stats is not None:
-        stats["seconds"] = time.time() - t0
-    print(f"[rec_kitti] seq {seq_name} done in {time.time() - t0:.1f}s "
+        stats["seconds"] = rec.seconds
+    print(f"[rec_kitti] seq {seq_name} done in {rec.seconds:.1f}s "
           f"({int(np.count_nonzero(m.registered))} registered)", flush=True)
     return m

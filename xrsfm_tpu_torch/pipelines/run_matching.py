@@ -16,7 +16,6 @@ VLAD themselves (feature/retrieval) and cache the ranks as retrieval.txt.
 from __future__ import annotations
 
 import os
-import time
 from typing import List, Optional
 
 import numpy as np
@@ -30,6 +29,7 @@ from ..ops.sift import SiftExtractor, SiftOptions
 from ..parallel.mesh import make_mesh
 from ..utils import image_io
 from ..utils import io_features as IOF
+from ..utils.profiling import span
 
 
 # moderate default against the reference's 8192-feature upsampled config
@@ -50,21 +50,30 @@ def get_features(
     feature_extraction.cc:21-56 is a runtime option here).  ORB's 32
     descriptor bytes are stored padded to ftr.bin's 128-byte rows; the
     Hamming matcher (ops/matching.match_pair_host_hamming) takes
-    [:, :32]."""
+    [:, :32].  A span xrsfm.extract."""
+    with span("xrsfm.extract") as sp:
+        feats, fresh = _load_or_extract(images_dir, ftr_path, image_names,
+                                        verbose, sift_opts, feature_type,
+                                        device)
+    if fresh and verbose:
+        print(f"[extract] total {sp.seconds:.1f}s", flush=True)
+    return feats
+
+
+def _load_or_extract(images_dir, ftr_path, image_names, verbose, sift_opts,
+                     feature_type, device):
+    """get_features' work: (features, whether they were extracted)."""
     if os.path.exists(ftr_path):
         feats = IOF.read_features(ftr_path)
         if len(feats) == len(image_names):
-            return feats
-    t0 = time.time()
+            return feats, False
     if feature_type == "orb":
         feats = _orb_features(images_dir, image_names, verbose, device)
     else:
         feats = _sift_features(images_dir, image_names, verbose, sift_opts,
                                device)
-    if verbose:
-        print(f"[extract] total {time.time() - t0:.1f}s", flush=True)
     IOF.write_features(ftr_path, feats)
-    return feats
+    return feats, True
 
 
 def _no_features(name: str) -> IOF.FrameFeatures:
@@ -142,11 +151,13 @@ def main(
     retrieval stay on `device`.
 
     stats (optional dict) receives pairs_proposed (the number of candidate
-    pairs matched and verified), extract_s and match_verify_s (host-clock
-    seconds of the two phases, each ending in a device-to-host copy),
-    retrieval_s when it ranked the images itself, and for covisibility
-    matching the split of match_verify_s into search_s (the expansion's
-    host search) and match_s (matching and verification)."""
+    pairs matched and verified), extract_s and match_verify_s (host
+    seconds of the spans xrsfm.extract, features extracted or loaded and
+    the image sizes, and xrsfm.match, pair selection to fp.bin written;
+    each ends in a device-to-host copy), retrieval_s (the span
+    xrsfm.retrieval) when it ranked the images itself, and for
+    covisibility matching the split of the matching into search_s (the
+    expansion's host search) and match_s (matching and verification)."""
     opts = opts or fmatch.MatchingOptions()
     resolve_device(device)
     mesh = make_mesh(n_devices, device, axis="pairs") if n_devices > 1 \
@@ -157,13 +168,16 @@ def main(
     image_names = IOF.load_image_names(images_dir)
     name_to_id = {n: i for i, n in enumerate(image_names)}
 
-    t_ex = time.time()
-    feats = get_features(images_dir, os.path.join(output_dir, "ftr.bin"),
-                         image_names, device=device)
-    get_image_sizes(images_dir, os.path.join(output_dir, "size.bin"),
-                    image_names)
+    with span("xrsfm.extract") as ex:
+        feats, fresh = _load_or_extract(
+            images_dir, os.path.join(output_dir, "ftr.bin"), image_names,
+            True, DEFAULT_SIFT, "sift", device)
+        get_image_sizes(images_dir, os.path.join(output_dir, "size.bin"),
+                        image_names)
+    if fresh:
+        print(f"[extract] total {ex.seconds:.1f}s", flush=True)
     if stats is not None:
-        stats["extract_s"] = time.time() - t_ex
+        stats["extract_s"] = ex.seconds
 
     id2rank = {}
     if retrieval_path and os.path.exists(retrieval_path):
@@ -176,23 +190,39 @@ def main(
         if os.path.exists(cache):
             id2rank = IOF.load_retrieval_rank(cache, name_to_id)
         else:
-            t_r = time.time()
-            ranks, _ = RET.build_retrieval(
-                [f.descriptors for f in feats], topk=opts.retrieval_topk,
-                device=device)
-            RET.write_retrieval_text(cache, image_names, ranks)
-            id2rank = RET.ranks_to_id2rank(ranks)
+            with span("xrsfm.retrieval") as rt:
+                ranks, _ = RET.build_retrieval(
+                    [f.descriptors for f in feats],
+                    topk=opts.retrieval_topk, device=device)
+                RET.write_retrieval_text(cache, image_names, ranks)
+                id2rank = RET.ranks_to_id2rank(ranks)
             if stats is not None:
-                stats["retrieval_s"] = time.time() - t_r
-            print(f"[retrieval] built in {time.time() - t_r:.1f}s -> {cache}",
+                stats["retrieval_s"] = rt.seconds
+            print(f"[retrieval] built in {rt.seconds:.1f}s -> {cache}",
                   flush=True)
 
-    t0 = time.time()
+    with span("xrsfm.match") as mt:
+        verified = _match(feats, id2rank, matching_type, opts, output_dir,
+                          stats, device, mesh)
+    if stats is not None:
+        stats["match_verify_s"] = mt.seconds
+    print(
+        f"[matching] {matching_type}: {len(verified)} verified pairs "
+        f"in {mt.seconds:.1f}s -> {output_dir}/fp.bin",
+        flush=True,
+    )
+    return verified
+
+
+def _match(feats, id2rank, matching_type, opts, output_dir, stats, device,
+           mesh):
+    """main's pairs, matching and verification, and fp.bin."""
+    n = len(feats)
     if matching_type == "sequential":
-        pairs = fmatch.sequential_pairs(len(image_names), opts)
+        pairs = fmatch.sequential_pairs(n, opts)
         # loop-closure probes every Nth frame against retrieval neighbors
         # (reference: MatchingSeq, run_matching.cc:125-151)
-        for i in range(0, len(image_names), opts.seq_loop_stride):
+        for i in range(0, n, opts.seq_loop_stride):
             for j in id2rank.get(i, [])[: opts.retrieval_topk]:
                 if abs(i - j) >= opts.seq_window:
                     pairs.append((min(i, j), max(i, j)))
@@ -209,13 +239,5 @@ def main(
             stats["pairs_proposed"] = len(pairs)
         verified = fmatch.match_and_verify_pairs(feats, pairs, opts,
                                                  device=device, mesh=mesh)
-    if stats is not None:
-        stats["match_verify_s"] = time.time() - t0
-
     IOF.write_frame_pairs(os.path.join(output_dir, "fp.bin"), verified)
-    print(
-        f"[matching] {matching_type}: {len(verified)} verified pairs "
-        f"in {time.time() - t0:.1f}s -> {output_dir}/fp.bin",
-        flush=True,
-    )
     return verified

@@ -17,7 +17,6 @@ snapshot onto the freshly built map and continues from it.
 from __future__ import annotations
 
 import os
-import time
 from typing import Optional
 
 import numpy as np
@@ -29,6 +28,7 @@ from ..device import resolve_device
 from ..mapper import IncrementalMapper, MapperOptions
 from ..utils import io_colmap as IOC
 from ..utils import io_features as IOF
+from ..utils.profiling import span
 
 
 def build_map(bin_dir: str, camera_txt: Optional[str] = None,
@@ -81,44 +81,48 @@ def main(
     """Run the stage; returns the map, or None when initialization fails.
     correct_pose turns on loop correction and, with it, the global pose
     polish (the drift-prone sequential regime).  stats, when given,
-    receives the mapper's MapperStats and the stage seconds.
+    receives the mapper's MapperStats and the stage seconds (the span
+    xrsfm.reconstruct, with xrsfm.reconstruct.load around the map's
+    construction and xrsfm.reconstruct.write around the model's files).
     n_devices > 1 shards the global BA solves over that many devices
     (RuntimeError when fewer exist)."""
     dev = resolve_device(device)
-    t0 = time.time()
-    opts = opts or MapperOptions()
-    opts.init_id1 = init_id1
-    opts.init_id2 = init_id2
-    opts.correct_pose = opts.correct_pose or correct_pose
-    # drift-prone sequential regime: couple the global pose polish to
-    # correct_pose (guarded by its own connectivity and residual gates)
-    opts.global_polish = opts.global_polish or opts.correct_pose
-    if n_devices > 1:
-        opts.n_devices = n_devices
-    snap_path = os.path.join(output_dir, "snapshot.npz")
-    if snapshot_every:
-        opts.snapshot_every = snapshot_every
-        opts.snapshot_path = snap_path
-    mapper = IncrementalMapper(opts, device=dev)
-    m = build_map(bin_dir, camera_txt)
-    if resume and os.path.exists(snap_path):
-        SNAP.restore_into(m, snap_path)
-        print(f"[reconstruction] resumed from {snap_path} "
-              f"({int(np.count_nonzero(m.registered))} frames registered)",
-              flush=True)
-    ok = mapper.reconstruct(m)
+    with span("xrsfm.reconstruct") as rec:
+        opts = opts or MapperOptions()
+        opts.init_id1 = init_id1
+        opts.init_id2 = init_id2
+        opts.correct_pose = opts.correct_pose or correct_pose
+        # drift-prone sequential regime: couple the global pose polish to
+        # correct_pose (guarded by its own connectivity and residual gates)
+        opts.global_polish = opts.global_polish or opts.correct_pose
+        if n_devices > 1:
+            opts.n_devices = n_devices
+        snap_path = os.path.join(output_dir, "snapshot.npz")
+        if snapshot_every:
+            opts.snapshot_every = snapshot_every
+            opts.snapshot_path = snap_path
+        mapper = IncrementalMapper(opts, device=dev)
+        with span("xrsfm.reconstruct.load"):
+            m = build_map(bin_dir, camera_txt)
+            if resume and os.path.exists(snap_path):
+                SNAP.restore_into(m, snap_path)
+                print(f"[reconstruction] resumed from {snap_path} "
+                      f"({int(np.count_nonzero(m.registered))} frames "
+                      f"registered)", flush=True)
+        ok = mapper.reconstruct(m)
+        if stats is not None:
+            stats["mapper"] = mapper.stats
+        if not ok:
+            print("[reconstruction] FAILED to initialize", flush=True)
+            return None
+        with span("xrsfm.reconstruct.write"):
+            n_img, n_pts = map_to_colmap(m, output_dir)
+            write_trajectory(m, os.path.join(output_dir, "trajectory.txt"))
     if stats is not None:
-        stats["mapper"] = mapper.stats
-    if not ok:
-        print("[reconstruction] FAILED to initialize", flush=True)
-        return None
-    n_img, n_pts = map_to_colmap(m, output_dir)
-    write_trajectory(m, os.path.join(output_dir, "trajectory.txt"))
-    if stats is not None:
-        stats["seconds"] = time.time() - t0
+        stats["seconds"] = rec.seconds
     print(
         f"[reconstruction] {n_img} images, {n_pts} points in "
-        f"{time.time() - t0:.1f}s -> {output_dir} "
+        f"{rec.seconds:.1f}s -> {output_dir} "
         f"({int(np.count_nonzero(m.registered))} registered)",
         flush=True,
     )

@@ -1,11 +1,12 @@
 """Tracing and device-time helpers (port of xrsfm_tpu/utils/profiling.py).
 
 The reference's observability is wall-clock timers printed at stage ends
-(Timer/TimerArray/TIMING, src/utility/timer.h:12-70; utils/timer here).
-This module adds the device layer: torch.profiler traces (a Chrome trace
-that Perfetto or chrome://tracing opens), named spans, device time
-measured between CUDA events, and counts of device operations and host
-fetches.
+(Timer/TimerArray/TIMING, src/utility/timer.h:12-70).  Here every phase
+of the program opens a `span`: a named range on torch.profiler's clock
+that also keeps its own host seconds, which the mapper's MapperStats and
+the pipelines' stats read.  Besides: torch.profiler traces (a Chrome
+trace that Perfetto or chrome://tracing opens), device time measured
+between CUDA events, and counts of device operations and host fetches.
 """
 
 from __future__ import annotations
@@ -80,11 +81,50 @@ def device_time(fn, *args, warmup: int = 1, iters: int = 10, **kw):
     return float(np.median(times)), out
 
 
-@contextlib.contextmanager
-def annotate(name: str):
-    """Named profiler span (shows up in the torch.profiler trace)."""
-    with torch.profiler.record_function(name):
-        yield
+try:
+    from torch._C._profiler import _RecordFunctionFast as _Range
+except ImportError:  # a torch without it: the user-scope range
+    _Range = torch.autograd.profiler.record_function
+
+_profiling = torch.autograd._profiler_enabled
+
+
+class span:
+    """A named phase of the program: `with span("xrsfm.mapper.lba") as s:`.
+
+    While a torch.profiler profile runs, the block is a host event named
+    `name` in the same trace as the device's kernels, copies and runtime
+    calls; spans nest by the call stack.  The range is torch's
+    _RecordFunctionFast, which is not a user annotation, so the profiler
+    puts nothing on the device's timeline for it.  Where torch lacks that
+    class the range is record_function: about 10 us a span, and a user
+    annotation that the profiler also copies onto the device's timeline.
+
+    s.seconds holds the block's host seconds (time.perf_counter) once it
+    exits.  A span never synchronises: what the device did inside it is
+    read from a trace.  With no profiler running a span costs two clock
+    reads and a check, under a microsecond; there is no switch."""
+
+    __slots__ = ("name", "seconds", "_range", "_t0")
+
+    def __init__(self, name: str):
+        self.name = name
+        self.seconds = 0.0
+        self._range = None
+
+    def __enter__(self):
+        if _profiling():
+            self._range = _Range(self.name)
+            self._range.__enter__()
+        self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, exc_type, exc, tb):
+        self.seconds = time.perf_counter() - self._t0
+        if self._range is not None:
+            self._range.__exit__(exc_type, exc, tb)
+            self._range = None
+        return False
 
 
 # CUDA runtime calls that make the host wait for the device without a
@@ -131,7 +171,20 @@ def dispatch_counter(device):
 
     On the CPU the block runs unprofiled and all three stay None.  The
     profiler slows the block (4x to 8x for the image pipeline's stages on
-    an H100), so time only uncounted runs.  Usage:
+    an H100), so time only uncounted runs.
+
+    Count in a fresh process, or in the first profile of one.  On an H100
+    under torch 2.11 (CUPTI of CUDA 12.8) a profile loses device events
+    once earlier profiles have run in the process: a row wrapper's two
+    launches, counted three times after each of four 2-second profiles,
+    read 2, 2, 2 / 1, 1, 1 / 1, 1, 1 / 0, 0, 0, and with 0.1 s of idle
+    profile on both sides of the block 2, 2, 2 / 2, 1, 1 / 1, 1, 1 /
+    0, 0, 2, so it is not the window's edge.  The same profiles put device times off the host's by
+    up to 27 ms, drifting at up to 1.4% and re-synchronised every few
+    seconds.  The loss is the profiler's and the counter cannot undo it;
+    a single profile in a process lost nothing (every launch and copy of
+    a 22-second pipeline pass after 51 seconds of work had its device
+    event).  Usage:
 
         with dispatch_counter("cuda") as c:
             stage()
