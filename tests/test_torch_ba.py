@@ -14,6 +14,7 @@ import jax
 import jax.numpy as jnp
 import torch
 
+import pcg_reference as PR
 from xrsfm_tpu.optim import ba as JB
 from xrsfm_tpu_torch.optim import ba as TB
 from xrsfm_tpu_torch.utils import camera as TC
@@ -158,6 +159,56 @@ def test_solve_counts_by_device():
     assert TB.COUNTS["solves_cpu"] == 1 and TB.COUNTS["solves_cuda"] == 0
     assert TB.COUNTS["lm_iters"] == info["iters"] > 0
     assert TB.COUNTS["cg_iters"] > 0
+
+
+@pytest.mark.parametrize("intri", [False, True], ids=["D6", "D14"])
+def test_pcg_step_reproduces_out_of_place_loop(monkeypatch, intri):
+    """solve_ba through the row layout, PCG as _Pcg's in-place step,
+    against the same solve with tests/pcg_reference.py's out-of-place loop
+    in _Pcg's place, which also runs the step in lockstep from each LM
+    step's setup: every PCG iterate, the final state, the info dict and
+    COUNTS["cg_iters"] bit for bit (D = 6 stops on the tolerance, the
+    tied D = 14 solve at cg_iters); no graph captured on the CPU."""
+    d = PR.problem(intri)
+    opts = PR.options(intri)
+    p, ell = TB.pack_camera_major(_port(d))
+    TB.reset_counts()
+    got, info = TB.solve_ba(p, opts, ell)
+    counts = dict(TB.COUNTS)
+    diffs = []
+    monkeypatch.setattr(TB, "_Pcg", PR.lockstep(diffs))
+    TB.reset_counts()
+    want, info_ref = TB.solve_ba(p, opts, ell)
+    assert len(diffs) == TB.COUNTS["cg_iters"] == counts["cg_iters"] > 0
+    assert max(diffs) == 0.0
+    assert info == info_ref and info["final_cost"] < info["initial_cost"]
+    for f in ("cam_q", "cam_t", "cam_intri", "points"):
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+    assert counts["pcg_graph_captures"] == counts["pcg_graph_replays"] == 0
+    if intri:
+        assert counts["cg_iters"] == opts.cg_iters * counts["lm_iters"]
+    else:
+        assert counts["cg_iters"] < opts.cg_iters * counts["lm_iters"]
+
+
+def test_pcg_zero_iterations_make_none(monkeypatch):
+    """cg_iters = 0: each LM step's PCG computes no stop test and leaves
+    dx_c at 0; no iteration, capture or replay is counted."""
+    made = []
+
+    class Recorded(TB._Pcg):
+        def __init__(self, *a):
+            super().__init__(*a)
+            made.append(self)
+
+    monkeypatch.setattr(TB, "_Pcg", Recorded)
+    p, ell = TB.pack_camera_major(_port(PR.problem(False)))
+    TB.reset_counts()
+    _, info = TB.solve_ba(p, PR.options(False, cg_iters=0), ell)
+    assert len(made) == TB.COUNTS["lm_iters"] == info["iters"] > 0
+    assert all(m.go is None and not m.x.any() for m in made)
+    assert TB.COUNTS["cg_iters"] == TB.COUNTS["pcg_graph_captures"] \
+        == TB.COUNTS["pcg_graph_replays"] == 0
 
 
 def test_ba_problem_generator_matches_bench():

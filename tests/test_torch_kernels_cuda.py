@@ -965,3 +965,94 @@ def test_dispatch_counter_counts_launches_and_fetches(cuda_device):
     assert sum(c["by_name"].values()) == 2
     assert any(k.startswith("vectorized_elementwise_kernel")
                for k in c["by_name"]), c["by_name"]
+
+
+def _pcg_problem(dev, intri, cg_iters=15):
+    import pcg_reference as PR
+    from xrsfm_tpu_torch.optim import ba
+
+    d = PR.problem(intri, n_cams=20, n_pts=500)
+    p, ell = ba.pack_camera_major(ba.BAProblem.from_numpy(dev, **d))
+    return p, ell, PR.options(intri, cg_iters)
+
+
+@pytest.mark.parametrize("route", ["graph", "eager"])
+@pytest.mark.parametrize("intri", [False, True], ids=["D6", "D14"])
+def test_pcg_graph_bit_equal_to_out_of_place(cuda_device, monkeypatch,
+                                             intri, route):
+    """On the card, solve_ba through the row kernels with each LM step's
+    PCG iterations replayed as a CUDA graph, against the same solve with
+    tests/pcg_reference.py's out-of-place loop in _Pcg's place, which runs
+    the in-place step in lockstep from each LM step's setup, replayed from
+    a capture of its own (graph) or called (eager): the largest difference
+    of any iterate, the final state, the info dict and COUNTS["cg_iters"]
+    bit for bit; a replay for every iteration."""
+    import pcg_reference as PR
+    from xrsfm_tpu_torch.optim import ba
+
+    p, ell, opts = _pcg_problem(cuda_device, intri)
+    ba.reset_counts()
+    got, info = ba.solve_ba(p, opts, ell)
+    counts = dict(ba.COUNTS)
+    diffs = []
+    monkeypatch.setattr(ba, "_Pcg", PR.lockstep(diffs, route))
+    ba.reset_counts()
+    want, info_ref = ba.solve_ba(p, opts, ell)
+    assert len(diffs) == ba.COUNTS["cg_iters"] == counts["cg_iters"] > 0
+    assert max(diffs) == 0.0, f"largest difference {max(diffs)!r}"
+    assert info == info_ref and info["final_cost"] < info["initial_cost"]
+    for f in ("cam_q", "cam_t", "cam_intri", "points"):
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+    assert counts["pcg_graph_replays"] == counts["cg_iters"]
+    assert 0 < counts["pcg_graph_captures"] <= counts["lm_iters"]
+
+
+def test_pcg_graph_captures_and_replays(cuda_device, monkeypatch):
+    """One capture for each LM step whose PCG iterates, none for one that
+    stops at its first test (cg_tol 1e9) or has cg_iters 0, and one
+    replay for each iteration: over a D = 6, a D = 14 and those solves."""
+    from xrsfm_tpu_torch.optim import ba
+
+    runs = []
+    run = ba._Pcg.run
+
+    def counted(self, cg_iters):
+        n0 = ba.COUNTS["cg_iters"]
+        run(self, cg_iters)
+        runs.append(ba.COUNTS["cg_iters"] - n0)
+
+    monkeypatch.setattr(ba._Pcg, "run", counted)
+    ba.reset_counts()
+    for intri, cg_iters, cg_tol in ((False, 15, 1e-2), (True, 15, 1e-2),
+                                    (False, 15, 1e9), (False, 0, 1e-2)):
+        p, ell, opts = _pcg_problem(cuda_device, intri, cg_iters)
+        ba.solve_ba(p, dataclasses.replace(opts, cg_tol=cg_tol), ell)
+    c = ba.COUNTS
+    assert len(runs) == c["lm_iters"] and 0 in runs
+    assert c["pcg_graph_captures"] == sum(1 for n in runs if n > 0) > 0
+    assert c["pcg_graph_replays"] == c["cg_iters"] == sum(runs)
+
+
+def test_pcg_graph_under_profiler(cuda_device):
+    """A warm row solve under torch.profiler (tests/pcg_reference.
+    profiled_solve, in a fresh interpreter so that it is the process's
+    first profile): its graphs capture and replay, each replay is one
+    cudaGraphLaunch on the host, every copy the host asked for pairs with
+    one the device ran (no copy inside a graph), the PCG stop tests'
+    fetches pin the clocks, and PCG issues under 20 launches an
+    iteration (setup and capture included)."""
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    res = subprocess.run(
+        [sys.executable, "-c",
+         "import json, sys; sys.path.insert(0, 'tests'); "
+         "import pcg_reference; "
+         "print(json.dumps(pcg_reference.profiled_solve()))"],
+        cwd=repo, capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stdout + res.stderr
+    out = json.loads(res.stdout.strip().splitlines()[-1])
+    c = out["counts"]
+    assert c["pcg_graph_captures"] > 0, out
+    assert out["graph_launches"] == c["pcg_graph_replays"] == c["cg_iters"]
+    assert out["host_copies"] == out["device_copies"] > 0, out
+    assert out["fetches"] is not None and out["fetches"] >= c["cg_iters"]
+    assert 0 < out["launches_per_iter"] < 20, out

@@ -45,7 +45,10 @@ Common to both:
     6x6 pose block per camera and an 8x8 intrinsic block per block.
 
 The LM and PCG loops run on the host: each stop test reads one scalar
-from the device.  Everything solve_ba runs is float32, on a GPU inside
+from the device.  On a GPU each PCG iteration of the ELL solve is one
+CUDA graph, captured once an LM step and replayed an iteration (_Pcg),
+and solve_ba runs on a stream of its own (_on_ba_stream).
+Everything solve_ba runs is float32, on a GPU inside
 `device.full_precision()` (no TF32).  The ELL functions keep the JAX
 package's pt_dtype / compute_dtype arguments (bfloat16 there by default,
 the JAX package's bf16 Schur operands); solve_ba and the tools pass
@@ -55,6 +58,7 @@ float32.
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import numpy as np
 import torch
@@ -71,11 +75,15 @@ _BAD_RESIDUAL = 12.0  # the reference's negative-depth guard constant
 # solve ran on (dist_solves_*: parallel/dist_ba's, by its home device;
 # row_solves_*: the solves among solves_* that took the camera-major row
 # layout): shows that a run's bundle adjustment ran on the card, in which
-# layout, and what its host loops cost.
+# layout, and what its host loops cost.  pcg_graph_captures /
+# pcg_graph_replays: the ELL solve's PCG iterations captured as a CUDA
+# graph (one an LM step that iterates) and replayed (one an iteration);
+# both stay 0 on the CPU.
 COUNTS = {"solves_cuda": 0, "solves_cpu": 0, "intri_solves_cuda": 0,
           "intri_solves_cpu": 0, "row_solves_cuda": 0, "row_solves_cpu": 0,
           "dist_solves_cuda": 0, "dist_solves_cpu": 0,
-          "lm_iters": 0, "cg_iters": 0}
+          "lm_iters": 0, "cg_iters": 0,
+          "pcg_graph_captures": 0, "pcg_graph_replays": 0}
 
 # Launches of the two row kernels by route, since reset_launch_counts():
 # the wrappers cam_rows / pt_rows count the kernel where they launch it and
@@ -713,9 +721,9 @@ class _TiedSpace:
         yi = segment_sum(y[:, 6:], self.kam, self.C)
         return torch.cat([y[:, :6], yi[self.kam]], dim=1)
 
-    def dot(self, a, b):
-        return ((a[:, :6] * b[:, :6]).sum()
-                + (a[:, 6:] * b[:, 6:] * self.wred).sum())
+    def dot(self, a, b, out=None):
+        return torch.add((a[:, :6] * b[:, :6]).sum(),
+                         (a[:, 6:] * b[:, 6:] * self.wred).sum(), out=out)
 
     def reduce(self, x):
         """One copy of each block's intrinsic value: [C(blocks), 8]."""
@@ -730,8 +738,8 @@ class _PlainSpace:
         return y
 
     @staticmethod
-    def dot(a, b):
-        return (a * b).sum()
+    def dot(a, b, out=None):
+        return torch.sum(a * b, dim=None, out=out)
 
 
 def _jacobi_blocks(ps, Ud, Vinv, W, space, reduce_fn=_single):
@@ -1001,9 +1009,11 @@ def _schur_solve_ell(p: BAProblem, ell: EllIndex, U, V, bc, bp, Jc, Jp, w,
       * flat (Jc [O,2,D]): Z built in the flat table and gathered.
     With a 14-column Jc the tied-intrinsics space of _TiedSpace holds the
     PCG vectors.  Operands in compute_dtype, products accumulated in
-    float32.  The PCG loop runs on the host (one scalar read an
-    iteration) and carries Σ alpha ypt(p_k), so the back-substitution
-    needs no further point sum.  Returns (dx_c [C,D], dx_p [P,3])."""
+    float32.  PCG (_Pcg) reads its stop test on the host once an
+    iteration, on a GPU after replaying the iteration as a CUDA graph
+    captured for this call, and carries Σ alpha ypt(p_k), so the
+    back-substitution needs no further point sum.  Returns (dx_c [C,D],
+    dx_p [P,3])."""
     with span("xrsfm.ba.schur"):
         C = p.cam_q.shape[0]
         P = p.points.shape[0]
@@ -1140,34 +1150,141 @@ def _schur_solve_ell(p: BAProblem, ell: EllIndex, U, V, bc, bp, Jc, Jp, w,
                 return _mv(Minv, x)
 
     with span("xrsfm.ba.pcg"):
-        dot = space.dot
-        x = torch.zeros_like(rhs)
-        r_ = rhs
-        z_ = precond(r_)
-        pk = z_
-        rz = dot(r_, z_)
-        bnorm = torch.sqrt(dot(rhs, rhs)) + 1e-30
-        ypx = rhs.new_zeros((P, 3))
-        for _ in range(cg_iters):
-            if not bool(torch.sqrt(dot(r_, r_)) > cg_tol * bnorm):
-                break
-            COUNTS["cg_iters"] += 1
-            # the matvec's point sum is ypt(pk); ypt(x) = Σ alpha_k ypt(p_k)
-            # by linearity (x starts at 0), for the back-substitution
-            ypp = ypt_reduce(pk)
-            Ap = S_matvec(pk, ypp)
-            denom = dot(pk, Ap)
-            alpha = rz / torch.where(denom.abs() < 1e-30, 1e-30, denom)
-            x = x + alpha * pk
-            ypx = ypx + alpha * ypp
-            r_ = r_ - alpha * Ap
-            z_ = precond(r_)
-            rz_new = dot(r_, z_)
-            beta = rz_new / torch.where(rz.abs() < 1e-30, 1e-30, rz)
-            pk = z_ + beta * pk
-            rz = rz_new
+        pcg = _Pcg(rhs, P, ypt_reduce, S_matvec, precond, space.dot, cg_tol)
+        pcg.run(cg_iters)
         # dp = V⁻¹ bp - L Σ_{o in p} Y_oᵀ dx_cam(o)
-        return x, _mv(Vinv, bp) - _mv(L, ypx)
+        return pcg.x, _mv(Vinv, bp) - _mv(L, pcg.ypx)
+
+
+class _Pcg:
+    """Block-Jacobi PCG on one LM step's reduced camera system S x = rhs
+    (_schur_solve_ell), held in state tensors that `step` updates in
+    place: x; ypx = Σ alpha_k ypt(p_k), which is ypt(x) by linearity (x
+    starts at 0) and spares the back-substitution a point sum; the
+    residual r (rhs itself, overwritten); the direction pk; rz = rᵀ M⁻¹ r;
+    and go, the next iteration's stop test sqrt(rᵀ r) > cg_tol |rhs|.
+    The in-place and out= operations compute what an out-of-place loop
+    computes, in the same order, bit for bit.
+
+    Since the state keeps its addresses, `run` on a GPU captures the step
+    once as a CUDA graph (_pcg_graph) and replays it each iteration: one
+    graph launch in place of the step's ~45 kernels.  The graph reads the
+    setup's tensors (Jacobians, Z, the preconditioner) by address, with no
+    copy, so it is never replayed after run returns."""
+
+    def __init__(self, rhs, n_pts, ypt_reduce, S_matvec, precond, dot,
+                 cg_tol):
+        self.ypt_reduce, self.S_matvec = ypt_reduce, S_matvec
+        self.precond, self.dot = precond, dot
+        self.x = torch.zeros_like(rhs)
+        self.r = rhs
+        self.pk = precond(rhs)
+        self.rz = dot(rhs, self.pk)
+        self.thr = cg_tol * (torch.sqrt(dot(rhs, rhs)) + 1e-30)
+        self.ypx = rhs.new_zeros((n_pts, 3))
+        self.go = None
+
+    def test(self, out=None):
+        """sqrt(rᵀ r) > cg_tol |rhs|: another iteration is due."""
+        return torch.gt(torch.sqrt(self.dot(self.r, self.r)), self.thr,
+                        out=out)
+
+    def step(self):
+        """One iteration, in place; ends with the next stop test in go."""
+        ypp = self.ypt_reduce(self.pk)  # the matvec's point sum
+        Ap = self.S_matvec(self.pk, ypp)
+        denom = self.dot(self.pk, Ap)
+        alpha = self.rz / torch.where(denom.abs() < 1e-30, 1e-30, denom)
+        self.x.add_(alpha * self.pk)
+        self.ypx.add_(alpha * ypp)
+        self.r.sub_(alpha * Ap)
+        z = self.precond(self.r)
+        rz_den = torch.where(self.rz.abs() < 1e-30, 1e-30, self.rz)
+        self.dot(self.r, z, out=self.rz)
+        beta = self.rz / rz_den
+        torch.add(z, beta * self.pk, out=self.pk)
+        self.test(out=self.go)
+
+    def run(self, cg_iters):
+        """At most cg_iters iterations while the stop test holds, read on
+        the host before each (none when cg_iters is 0)."""
+        if cg_iters <= 0:
+            return
+        self.go = self.test()
+        if not bool(self.go):
+            return
+        graph = (_pcg_graph(self.step, self.r.device) if self.r.is_cuda
+                 else None)
+        for k in range(cg_iters):
+            COUNTS["cg_iters"] += 1
+            if graph is None:
+                self.step()
+            else:
+                COUNTS["pcg_graph_replays"] += 1
+                graph.replay()
+            if k + 1 == cg_iters or not bool(self.go):
+                break
+
+
+# A stream a device for bundle adjustment, and the PCG graph captured last
+# on it (never replayed again; it holds the graphs' memory pool, which
+# PyTorch frees once no graph uses it), kept for the process.
+_BA_STREAMS = {}
+_LAST_GRAPH = {}
+
+
+@contextlib.contextmanager
+def _on_ba_stream(device):
+    """Run the block on the device's BA stream, after the work queued so
+    far on the current stream, which then waits for the block's work; a
+    no-op on the CPU and on the BA stream itself.  cuBLAS keeps a
+    workspace (32 MiB on an H100) for each stream it runs on, so the
+    solve's eager work and its graphs share this one stream, and one
+    workspace."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        yield
+        return
+    with torch.cuda.device(dev):
+        idx = torch.cuda.current_device()
+        if idx not in _BA_STREAMS:
+            _BA_STREAMS[idx] = torch.cuda.Stream()
+        cur, side = torch.cuda.current_stream(), _BA_STREAMS[idx]
+        if cur == side:
+            yield
+            return
+        side.wait_stream(cur)
+        try:
+            with torch.cuda.stream(side):
+                yield
+        finally:
+            cur.wait_stream(side)
+
+
+def _pcg_graph(step, device):
+    """step() captured as a CUDA graph on the device's BA stream, not run.
+    Unlike torch.cuda.graph, no device-wide synchronise and no cache flush;
+    thread_local mode, so that the profiler's own threads may call CUDA
+    meanwhile.  The graph's temporaries come from one pool that every PCG
+    graph of the device shares, so a capture allocates nothing new once
+    the pool holds an iteration.  An operation of step that reads the
+    device on the host fails the capture."""
+    with _on_ba_stream(device):
+        idx = torch.cuda.current_device()
+        last = _LAST_GRAPH.get(idx)
+        graph = torch.cuda.CUDAGraph()
+        with span("xrsfm.ba.pcg.capture"):
+            graph.capture_begin(
+                pool=(last.pool() if last is not None
+                      else torch.cuda.graph_pool_handle()),
+                capture_error_mode="thread_local")
+            try:
+                step()
+            finally:
+                graph.capture_end()
+        _LAST_GRAPH[idx] = graph
+    COUNTS["pcg_graph_captures"] += 1
+    return graph
 
 
 # ---------------------------------------------------------------------------
@@ -1396,7 +1513,8 @@ def solve_ba(p: BAProblem, opts: BAOptions = BAOptions(),
         COUNTS[f"intri_solves_{dev}"] += 1
     if ell is not None and ell.cam.contig:
         COUNTS[f"row_solves_{dev}"] += 1
-    with span("xrsfm.ba.solve"), full_precision():
+    with span("xrsfm.ba.solve"), full_precision(), \
+            _on_ba_stream(p.cam_q.device):
         if ell is None:
             return _solve(p, opts)
         return _solve_ell(p, opts, ell)

@@ -85,8 +85,9 @@ def lm_step(p: ba.BAProblem, ell: ba.EllIndex, lam, cg_iters: int):
 
 def lm_run(p, ell, lam, length: int, cg_iters: int):
     """`length` LM steps with no early stop and no host read of their own
-    (the PCG loop of optim/ba._schur_solve_ell still reads its residual
-    norm once an iteration).  Returns (problem, lambda, cost)."""
+    (PCG in optim/ba._schur_solve_ell still reads its stop test once an
+    iteration, on a GPU after replaying the iteration's CUDA graph).
+    Returns (problem, lambda, cost)."""
     cost = None
     for _ in range(length):
         p, lam, cost = lm_step(p, ell, lam, cg_iters)
