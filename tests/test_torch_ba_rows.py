@@ -195,7 +195,10 @@ def test_normal_blocks_match_jax(branch):
     and with return_pt_gathers; the flat gather branch) and
     _build_pt_blocks_native, with fix_cam, fix_trans, fix_pt and fix_rot,
     against the JAX package at pt_dtype float32: U, V, bc, bp within 1e-4
-    of each array's largest entry, Jcw, Jpg and spg within 1e-5.  The JAX
+    of each array's largest entry, Jcw, Jpg and spg within 1e-5 (the
+    port's point-native Jpg is zero on slots of weight 0, padding and the
+    guard's, where the JAX package keeps the Jacobian that the weight
+    then zeroes).  The JAX
     flat branch casts its camera operands to bfloat16 whatever pt_dtype
     says, so the port's flat U and bc are held to the JAX package's COO
     _build_normal_blocks (float32) instead.  The plain cam_rows / pt_rows
@@ -267,7 +270,10 @@ def test_normal_blocks_match_jax(branch):
     if branch in ("row_gathers", "flat", "pt_native"):
         _close(V, Vj, 1e-4, "V")
         _close(bp, bpj, 1e-4, "bp")
-        _close(Jpg, np.asarray(Jpgj)[:Rp], 1e-5, "Jpg")
+        Jpgj = np.asarray(Jpgj)[:Rp]
+        if branch == "pt_native":
+            Jpgj = Jpgj * (np.asarray(spgj)[:Rp, :, :1, None] != 0)
+        _close(Jpg, Jpgj, 1e-5, "Jpg")
         _close(spg, np.asarray(spgj)[:Rp], 1e-5, "spg")
         assert not V.numpy()[d["fix_pt"]].any()
 

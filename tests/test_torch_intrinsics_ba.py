@@ -138,6 +138,28 @@ def test_solve_intrinsics_matches_jax(shared):
                                atol=2e-3)
 
 
+def test_jax_ell_solve_stalls_where_the_port_leaves_it():
+    """tests/test_torch_ba_stall.py's cut problem (cameras 105-124 of the
+    BAL-shaped problem of seed 1000004, the global BA's options) through
+    the JAX package's camera-major ELL solve: it stalls as the port did
+    before _keep_in_front (damping above 1 after 20 steps), and the port's
+    row solve ends more than 1% below it, having accepted at least 18 of
+    its 20 steps."""
+    from perfbench.gen import bal
+    from test_torch_ba_stall import CAMS, OPTS, _config, cut_problem
+
+    arr = cut_problem(bal.make_problem(_config(), 1000004)["start"], *CAMS)
+    pj = JB.BAProblem(**{k: jnp.asarray(v.astype(np.int32) if k in (
+        "obs_cam", "obs_pt") else v) for k, v in arr.items()})
+    pk, ell = JB.pack_camera_major(pj)
+    _, ij = JB.solve_ba(pk, JB.BAOptions(**OPTS, precise=True), ell)
+    pt, et = TB.pack_camera_major(TB.BAProblem.from_numpy("cpu", **arr))
+    _, it = TB.solve_ba(pt, TB.BAOptions(**OPTS), et)
+    assert float(ij["lam"]) > 1.0
+    assert it["accepts"] >= 18
+    assert it["final_cost"] < 0.99 * float(ij["final_cost"])
+
+
 def test_pose_only_solve_ignores_intrinsics_fields():
     """With the fields present and the option off, cam_intri stays
     bit-equal, and the solve is bit-equal to one without the fields."""

@@ -418,6 +418,152 @@ def _check_rows(dev, p, ell, with_intri):
     return kern
 
 
+def _plane_problem(dev):
+    """Three cameras with k1 = -0.05, k2 = 0.01: camera 0 at the origin,
+    cameras 1 and 2 300 m along x and 20 m back, all looking along z; 12
+    points 20 m in front of cameras 1 and 2, seen by both (point rows of 8
+    slots, 6 of them padding against camera 0).  Point 10 lies 0.05 m in
+    front of camera 0's plane, 300 m to its side; point 11 0.5 mm in front,
+    seen by camera 0 too (camera 0's one observation, a slot the guard
+    holds).  In both, the slots
+    against camera 0 weigh 0 and their Jacobian entries' products overflow
+    float."""
+    from xrsfm_tpu_torch.optim import ba
+
+    C, P = 3, 12
+    rng = np.random.default_rng(5)
+    centers = np.array([[0.0, 0, 0], [300, 0, -20], [301, 0, -20]])
+    X = np.stack([300.5 + rng.uniform(-3, 3, P), rng.uniform(-3, 3, P),
+                  rng.uniform(-1, 1, P)], axis=1)
+    X[10] = [300.5, 0.5, 0.05]
+    X[11] = [300.5, 1.0, 5e-4]
+    obs_cam = np.concatenate([np.repeat([1, 2], P), [0]])
+    obs_pt = np.concatenate([np.tile(np.arange(P), 2), [11]])
+    f, k1, k2 = 500.0, -0.05, 0.01
+    pc = X[obs_pt] - centers[obs_cam]
+    u = pc[:, :2] / pc[:, 2:]
+    r2 = (u * u).sum(1, keepdims=True)
+    uv = f * u * (1 + k1 * r2 + k2 * r2 * r2) + rng.normal(0, 0.5, u.shape)
+    d = dict(cam_q=np.tile([1.0, 0, 0, 0], (C, 1)), cam_t=-centers,
+             cam_intri=np.tile([f, f, 0, 0, k1, k2, 0, 0], (C, 1)),
+             points=X, obs_uv=uv, obs_cam=obs_cam, obs_pt=obs_pt,
+             obs_w=np.ones(len(obs_cam)), fix_cam=np.arange(C) == 0,
+             fix_trans=np.arange(C) == 1, fix_pt=np.zeros(P, bool),
+             cam_kam=np.arange(C), fix_intri=np.tile(
+                 [False, False, True, True, False, False, True, True], (C, 1)),
+             tie_f=np.ones(C, bool))
+    return ba.pack_camera_major(ba.BAProblem.from_numpy(dev, **d))
+
+
+def test_ba_pt_rows_zero_weight_slots_add_nothing(cuda_device):
+    """ba_pt_rows on _plane_problem, where the projection Jacobian of point
+    10 in camera 0 squares past float: V and bp finite, Jpg and spg zero
+    on every slot of weight 0, all four within ROW_TOLS of the plain
+    version's, and V and bp bit for bit from run to run."""
+    from xrsfm_tpu_torch.optim import ba
+    from xrsfm_tpu_torch.utils import camera as Cam
+    from xrsfm_tpu_torch.utils import geometry as G
+
+    p, ell = _plane_problem(cuda_device)
+    assert ell.pt.slots.shape[1] == 8
+    pc = G.quat_to_rotmat(p.cam_q[0]) @ p.points[10] + p.cam_t[0]
+    proj = pc[:2] / pc[2]
+    A = p.cam_intri[0, :2, None] * Cam.distort_jacobian(p.cam_intri[0], proj)
+    B = ba._proj_jacobian(A, pc, 1.0 / pc[2])
+    assert float(B.abs().amax()) ** 2 > torch.finfo(torch.float32).max
+    V, bp, (Jpg, spg) = ba.pt_rows_cuda(p, ell, 4.0)
+    V2, bp2, _ = ba.pt_rows_cuda(p, ell, 4.0)
+    V_e, bp_e, (Jpg_e, spg_e) = ba.pt_rows_plain(p, ell, 4.0)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(V).all() and torch.isfinite(bp).all())
+    dead = spg[..., 0] == 0
+    assert bool(dead.any()) and not Jpg[dead].any() and not spg[dead].any()
+    assert torch.equal(V, V2) and torch.equal(bp, bp2)
+    for got, want, width, tol in ((V, V_e, 9, "V"), (bp, bp_e, 3, "bp"),
+                                  (Jpg, Jpg_e, 6, "Jpg"),
+                                  (spg, spg_e, 4, "spg")):
+        assert _row_rel_err(got, want, width) <= ROW_TOLS[tol], tol
+
+
+def test_ba_pt_rows_on_the_stalled_cut_every_lm_step(cuda_device,
+                                                      monkeypatch):
+    """tests/test_torch_ba_stall.py's cut problem (cameras 105-124 of seed
+    1000004's BAL-shaped problem) solved on the card with intrinsics free:
+    at every LM step ba_pt_rows' V, bp and Jpg are finite, V and Jpg
+    within ROW_TOLS of pt_rows_plain on the same state, and bp, which
+    cancels across a point's slots, no further from the float64 plain
+    composition than twice the float32 plain version (the kernel forms
+    the residual in double precision; test_ba_row_kernels_match_plain's
+    rule); the solve accepts at least 18 of its 20 steps."""
+    from perfbench.gen import bal
+    from test_torch_ba_stall import CAMS, OPTS, _config, cut_problem
+    from xrsfm_tpu_torch.optim import ba
+
+    arr = cut_problem(bal.make_problem(_config(), 1000004)["start"], *CAMS)
+    p, ell = ba.pack_camera_major(ba.BAProblem.from_numpy(cuda_device, **arr))
+    kernel = ba.pt_rows
+    errs = []
+
+    def f64(x):
+        return dataclasses.replace(x, **{
+            f.name: getattr(x, f.name).double()
+            for f in dataclasses.fields(x)
+            if torch.is_tensor(getattr(x, f.name))
+            and getattr(x, f.name).is_floating_point()})
+
+    def checked(prob, e, huber):
+        V, bp, (Jpg, spg) = kernel(prob, e, huber)
+        V_e, bp_e, (Jpg_e, _) = ba.pt_rows_plain(prob, e, huber)
+        _, bp_64, _ = ba._build_pt_blocks_native(f64(prob), f64(e), huber,
+                                                 pt_dtype=torch.float64)
+        assert all(bool(torch.isfinite(x).all()) for x in (V, bp, Jpg))
+        errs.append((_row_rel_err(V, V_e, 9), _row_rel_err(Jpg, Jpg_e, 6),
+                     _row_rel_err(bp, bp_64, 3), _row_rel_err(bp_e, bp_64, 3)))
+        return V, bp, (Jpg, spg)
+
+    monkeypatch.setattr(ba, "pt_rows", checked)
+    _, info = ba.solve_ba(p, ba.BAOptions(**OPTS), ell)
+    assert len(errs) == info["iters"] == 20 and info["accepts"] >= 18
+    for v, j, b, b_plain in errs:
+        assert v <= ROW_TOLS["V"] and j <= ROW_TOLS["Jpg"]
+        assert b <= ROW_TOLS["bp"] or b <= 2 * b_plain
+
+
+# LBA problem 0 of perfbench's bal-dubrovnik356.lba cell for seed
+# 3100000015 (D = 6, 5 LM steps), solved on an "NVIDIA H100 80GB HBM3"
+# (torch 2.11.0+cu128) by the solver before ba_pt_rows skipped weight-0
+# slots and before the accepted-step count: final cost, PCG iterations, and
+# the first 16 hex digits of sha1(cam_q, cam_t, points bytes).
+LBA_RECORDED = (132530.328125, 39, "dcdcd22eb831863f")
+
+
+def test_pose_only_solve_bit_equal_to_recorded(cuda_device):
+    """A D = 6 solve on a fixed problem gives the recorded cost, PCG count
+    and state, bit for bit: the changes for the intrinsics solve leave the
+    pose-only solve's bits alone (on a problem whose point rows hold no
+    overflowing weight-0 slot)."""
+    import hashlib
+
+    from perfbench.gen import bal
+    from test_torch_ba_stall import _config
+    from xrsfm_tpu_torch.optim import ba
+
+    cfg = _config()
+    prob = bal.make_problem(cfg, 3100000015)
+    start = dict(prob["start"], cam_intri=prob["truth"]["cam_intri"])
+    c = bal.local_centers(cfg["n_cameras"], 32, 3100000015)[0]
+    arr = bal.local_problem(start, bal.covisibility(start), int(c), 5)
+    p, ell = ba.pack_camera_major(ba.BAProblem.from_numpy("cpu", **arr),
+                                  device=cuda_device)
+    cg0 = ba.COUNTS["cg_iters"]
+    sol, info = ba.solve_ba(p, ba.BAOptions(max_iters=5, huber_px=4.0,
+                                            cg_iters=15, cg_tol=0.01), ell)
+    h = hashlib.sha1(b"".join(getattr(sol, k).cpu().numpy().tobytes()
+                              for k in ("cam_q", "cam_t", "points")))
+    assert (info["final_cost"], ba.COUNTS["cg_iters"] - cg0,
+            h.hexdigest()[:16]) == LBA_RECORDED
+
+
 def test_ba_row_wrappers_device_operations(cuda_device):
     """One call of cam_rows_cuda makes at most 2 device operations (its two
     launches: no mask, cost or copy op around them) and one of

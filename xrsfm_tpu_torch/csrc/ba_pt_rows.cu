@@ -20,7 +20,10 @@
 //   solve's pt_gathers), and w Jpᵀ Jp and -Jpᵀ (w r) are summed.
 // Outputs per point: V [3, 3] and bp [3], zero where fix_pt freezes the
 // point.  Padding slots are evaluated like the others against camera 0 and
-// weigh 0, as in the plain version.
+// weigh 0, as in the plain version; a slot of weight 0 writes zero Jpg and
+// spg and adds nothing to V and bp (with k1, k2 set, a point near camera
+// 0's plane gives a padding slot a Jacobian and a residual that overflow
+// float).
 //
 // The residual r = pix - uv cancels two to three digits of pixels that
 // reach 10^3, and bp = -Σ Jpᵀ (w r) cancels more across a point's slots.
@@ -146,7 +149,13 @@ __global__ void __launch_bounds__(kThreads) pt_rows_kernel(
                           -(A[i][0] * pc[0] + A[i][1] * pc[1]) * (iz * iz)};
       quat_rotate<float>(qw, -qx, -qy, -qz, B, Jp[i]);  // Rᵀ b
     }
-    const float wr0 = w * r0, wr1 = w * r1;
+    // a slot of weight 0 carries zeros, never 0 x inf (see the header)
+    const bool live = w != 0.f;
+    if (!live) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i) Jp[i][0] = Jp[i][1] = Jp[i][2] = 0.f;
+    }
+    const float wr0 = live ? w * r0 : 0.f, wr1 = live ? w * r1 : 0.f;
     reinterpret_cast<float4*>(spg)[o] = make_float4(w, wr0, wr1, 0.f);
     float2* t2 = reinterpret_cast<float2*>(gt + lane * 6);
     t2[0] = make_float2(Jp[0][0], Jp[0][1]);

@@ -31,7 +31,10 @@ Common to both:
     SCHUR_JACOBI).
   * Huber robustness is IRLS re-weighting; the reference's negative-depth
     guard (constant residual (12, 12), cost_factor_ceres.h:29-32) becomes
-    zero IRLS weight and a constant cost.
+    zero IRLS weight and a constant cost.  With the intrinsics free, a
+    candidate never carries a point from in front of a camera that sees
+    it onto or behind that camera's plane: such a point keeps its place
+    (_keep_in_front).
   * Gauge freedom is fixed by masking Jacobian columns: frozen cameras,
     frozen translations (ba_solver.cc:610-614) and frozen points; frozen
     rotations (fix_rot) let a settling solve keep averaged rotations
@@ -75,14 +78,16 @@ _BAD_RESIDUAL = 12.0  # the reference's negative-depth guard constant
 # solve ran on (dist_solves_*: parallel/dist_ba's, by its home device;
 # row_solves_*: the solves among solves_* that took the camera-major row
 # layout): shows that a run's bundle adjustment ran on the card, in which
-# layout, and what its host loops cost.  pcg_graph_captures /
+# layout, and what its host loops cost.  lm_accepts: the LM candidates
+# accepted among lm_iters (a stalled solve rejects nearly every one),
+# summed on the device and read with the final cost.  pcg_graph_captures /
 # pcg_graph_replays: the ELL solve's PCG iterations captured as a CUDA
 # graph (one an LM step that iterates) and replayed (one an iteration);
 # both stay 0 on the CPU.
 COUNTS = {"solves_cuda": 0, "solves_cpu": 0, "intri_solves_cuda": 0,
           "intri_solves_cpu": 0, "row_solves_cuda": 0, "row_solves_cpu": 0,
           "dist_solves_cuda": 0, "dist_solves_cpu": 0,
-          "lm_iters": 0, "cg_iters": 0,
+          "lm_iters": 0, "cg_iters": 0, "lm_accepts": 0,
           "pcg_graph_captures": 0, "pcg_graph_replays": 0}
 
 # Launches of the two row kernels by route, since reset_launch_counts():
@@ -474,8 +479,11 @@ def _residuals_only(p: BAProblem):
 
 def _robust_cost_and_weight(r, z, obs_w, huber_px):
     """Huber cost and IRLS weights; cheirality violations get the
-    reference's constant residual and zero weight."""
-    bad = z <= 1e-3
+    reference's constant residual and zero weight.  An observation of
+    weight 0 takes the guard's constant too, so it costs 0 even where its
+    residual overflows (a padding slot's point near the camera's plane,
+    with k1, k2 set), not 0 x inf."""
+    bad = (z <= 1e-3).logical_or_(obs_w == 0)
     rn2 = (r * r).sum(dim=-1)
     rn2 = torch.where(bad, 2.0 * _BAD_RESIDUAL**2, rn2)
     rn = torch.sqrt(rn2.clamp_min(1e-18))
@@ -947,7 +955,7 @@ def _build_pt_blocks_native(p: BAProblem, ell: EllIndex, huber_px,
     the static point-major copies, so no observation-sized array is
     gathered from the camera-major table.  Returns V [P,3,3], bp [P,3] and
     (Jpg [Rp,Lw,2,3], spg [Rp,Lw,4]) in pt_dtype, as _schur_solve_ell's
-    pt_gathers wants them."""
+    pt_gathers wants them; a slot of weight 0 has Jpg and spg zero."""
     red = reduce_fn if reduce_fn is not None else _identity
     g = ell.pt.other  # [Rp,Lw] camera id per slot (0 on padding)
     gt = torch.cat([p.cam_q, p.cam_t, p.cam_intri], dim=1)[g]  # [Rp,Lw,15]
@@ -965,8 +973,13 @@ def _build_pt_blocks_native(p: BAProblem, ell: EllIndex, huber_px,
     B = _proj_jacobian(A, pc, 1.0 / zs)  # [Rp,Lw,2,3]
     # Jp rows = B rows R = Rᵀ b: the inverse rotation of each row of B
     Jp = G.quat_rotate(G.quat_conj(q)[..., None, :], B)
-    Jpg = Jp.to(pt_dtype)
-    spg = torch.cat([w[..., None], r * w[..., None],
+    # a slot of weight 0 (padding, evaluated against camera 0; the guard)
+    # carries zeros: with k1, k2 set, a point near that camera's plane
+    # gives it a Jacobian and a residual that overflow, and 0 x inf would
+    # reach V, bp and the Schur solve
+    live = (w != 0)[..., None]
+    Jpg = torch.where(live[..., None], Jp, 0.0).to(pt_dtype)
+    spg = torch.cat([w[..., None], torch.where(live, r * w[..., None], 0.0),
                      torch.zeros_like(w)[..., None]], dim=-1).to(pt_dtype)
     V, bp = _pt_reduce(p, ell, Jpg, spg, red)
     return V, bp, (Jpg, spg)
@@ -1577,17 +1590,59 @@ def _solve_ell(p: BAProblem, opts: BAOptions, ell: EllIndex):
     return _lm(p, opts, cost_of, step)
 
 
+def _depths(p: BAProblem):
+    """The depth of every observation [O]: the third row of its camera's
+    rotation times its point, plus t_z (the z of _project / _row_project)."""
+    R = G.quat_to_rotmat(p.cam_q)
+    return (R[p.obs_cam, 2] * p.points[p.obs_pt]).sum(dim=-1) \
+        + p.cam_t[p.obs_cam, 2]
+
+
+def _keep_in_front(p: BAProblem, cand: BAProblem):
+    """The candidate with every point put back where it is in p whose step
+    carries one of its observations from in front of the camera (a depth
+    above the guard's 1e-3) onto or behind the camera's plane.
+
+    The linearized step knows nothing of that plane: a point two views
+    barely fix in depth can be sent tens of metres, through both cameras'
+    planes, while the rest of the step lowers the cost enough to be
+    accepted.  The guard (_robust_cost_and_weight) then gives its
+    observations a constant cost and no weight, and every later step that
+    moves those cameras brings the point back just in front of a plane,
+    where its residual is millions of pixels: every candidate is rejected
+    and LM stalls.  The cost is unchanged; only the candidate is.  Padding
+    and weight-0 observations take no part.  The crossings are counted per
+    point with float adds of 0 and 1, exact in any order."""
+    cross = (_depths(p) > 1e-3) & (_depths(cand) <= 1e-3) & (p.obs_w > 0)
+    n = torch.zeros(p.points.shape[0], dtype=p.points.dtype,
+                    device=p.points.device)
+    back = n.index_add_(0, p.obs_pt, cross.to(n.dtype)) > 0
+    return dataclasses.replace(
+        cand, points=torch.where(back[:, None], p.points, cand.points))
+
+
 def _lm(p: BAProblem, opts: BAOptions, cost_of, step):
     """The LM loop: step(problem, lambda) -> (dx_c, dx_p), accepted when
-    cost_of the candidate is lower.  Each iteration is a span
+    cost_of the candidate is lower.  With the intrinsics free the
+    candidate goes through _keep_in_front: without it such solves stall.
+    Pose-only solves take the step as it is, as the reference does: there
+    the rule would hold a point that each step sends across a plane at
+    its large residual where the reference lets the guard take it, and
+    move the result off the reference's (local BA at Dubrovnik's shape:
+    19 of 32 problems moved, their costs a median 4e-4 and up to 4.2e-3
+    from the reference's, against 1e-6 and 1.5e-4 without the rule; CPU,
+    tests/test_torch_ba_stall.py).  Each iteration is a span
     xrsfm.ba.lm_step: the step's spans (rows, schur, pcg), then
     xrsfm.ba.cost around the candidate's cost, the accept and the stop
-    test's read."""
+    test's read.  The accepted candidates are summed on the device and
+    read with the final cost (info["accepts"], COUNTS["lm_accepts"])."""
+    keep = opts.optimize_intrinsics
     with span("xrsfm.ba.cost"):
         c0 = cost_of(p)
     cost = c0
     lam = torch.tensor(opts.lam_init, dtype=p.cam_q.dtype,
                        device=p.cam_q.device)
+    accepts = torch.zeros((), dtype=torch.int64, device=p.cam_q.device)
     it = 0
     done = False
     while it < opts.max_iters and not done:
@@ -1596,6 +1651,8 @@ def _lm(p: BAProblem, opts: BAOptions, cost_of, step):
             dx_c, dx_p = step(p, lam)
             with span("xrsfm.ba.cost"):
                 cand = _apply_step(p, dx_c, dx_p)
+                if keep:
+                    cand = _keep_in_front(p, cand)
                 new_cost = cost_of(cand)
                 accept = new_cost < cost
                 p = dataclasses.replace(
@@ -1608,6 +1665,7 @@ def _lm(p: BAProblem, opts: BAOptions, cost_of, step):
                                else p.cam_intri),
                     points=torch.where(accept, cand.points, p.points),
                 )
+                accepts += accept
                 cost2 = torch.where(accept, new_cost, cost)
                 lam2 = torch.where(accept, lam * opts.lam_down,
                                    lam * opts.lam_up)
@@ -1620,6 +1678,11 @@ def _lm(p: BAProblem, opts: BAOptions, cost_of, step):
                             & (lam <= 10.0 * opts.lam_init))
                 it += 1
                 cost, lam = cost2, lam2
-    info = dict(initial_cost=float(c0), final_cost=float(cost), iters=it,
-                lam=float(lam))
+    # one read for every number the caller gets (float64 holds the float32
+    # values and the count exactly)
+    c0, cost, lam, n_acc = torch.stack(
+        [c0.double(), cost.double(), lam.double(), accepts.double()]).tolist()
+    COUNTS["lm_accepts"] += int(n_acc)
+    info = dict(initial_cost=c0, final_cost=cost, iters=it, lam=lam,
+                accepts=int(n_acc))
     return p, info
