@@ -106,15 +106,33 @@ def _sentinel(jax_table, jax_sentinel, port_sentinel):
     return np.where(t == jax_sentinel, port_sentinel, t)
 
 
-@pytest.mark.parametrize("cam_width,n_pad", [(8, 0), (32, 40), (128, 0),
-                                             (128, 40)])
-def test_tables_equal_jax(cam_width, n_pad):
+@pytest.mark.parametrize("cam_width,n_pad,case", [
+    pytest.param(8, 0, {}, id="8-0"), pytest.param(32, 40, {}, id="32-40"),
+    pytest.param(128, 0, {}, id="128-0"),
+    pytest.param(128, 40, {}, id="128-40"),
+    pytest.param(128, 0, dict(pt_width=8, heavy_pts=5), id="pt_width8"),
+    pytest.param(128, 0, dict(drop_cam=5), id="empty_cam"),
+    pytest.param(128, 0, dict(n_valid=0), id="n_valid0"),
+    pytest.param(128, 0, dict(bucket_lo=16, n_valid=40), id="bucket_lo16")])
+def test_tables_equal_jax(cam_width, n_pad, case):
     """pack_camera_major at camera widths 8, 32 and 128, with and without
     n_valid padding (weight-0 rows at camera 0 and point 0 past n_valid),
-    and build_ell: every table equals the JAX package's first rows, array
+    with points over several rows (pt_width 8, points 0-4 seen again by
+    every camera: 19 observations), a camera with no observation (its one
+    empty row), no valid observation (n_valid 0) and bucket_lo 16, and
+    build_ell: every table equals the JAX package's first rows, array
     for array (padding sentinels mapped); starts[s] is the first row of
     segment s."""
+    case = dict(case)
     d = _problem(seed=1)
+    keep = d["obs_cam"] != case.pop("drop_cam", -1)
+    heavy = case.pop("heavy_pts", 0)
+    extra = dict(obs_cam=np.tile(np.arange(12), heavy),
+                 obs_pt=np.repeat(np.arange(heavy), 12),
+                 obs_w=np.ones(12 * heavy),
+                 obs_uv=np.full((12 * heavy, 2), 300.0))
+    for k in extra:
+        d[k] = np.concatenate([d[k][keep], extra[k].astype(d[k].dtype)])
     n = len(d["obs_cam"])
     if n_pad:
         for k, fill in (("obs_cam", 0), ("obs_pt", 0), ("obs_w", 0.0)):
@@ -122,12 +140,18 @@ def test_tables_equal_jax(cam_width, n_pad):
         d["obs_uv"] = np.concatenate([d["obs_uv"], np.zeros((n_pad, 2),
                                                             np.float32)])
     kw = dict(n_valid=n) if n_pad else {}
-    pt, et, pj, ej = _packed(d, cam_width=cam_width, **kw)
+    kw.update((k, case.pop(k)) for k in ("n_valid", "bucket_lo")
+              if k in case)
+    pt, et, pj, ej = _packed(d, cam_width=cam_width, **case, **kw)
     Rc, Mc = et.cam.slots.shape
     Rp, Lw = et.pt.slots.shape
     Rcj, Mcj = ej.cam.slots.shape
     Rpj = ej.pt.slots.shape[0]
-    assert Mc == Mcj == min(cam_width, 128) and Lw == ej.pt.slots.shape[1]
+    assert Mc == Mcj and Lw == ej.pt.slots.shape[1]
+    if kw.get("n_valid", n) == n:
+        assert Mc == min(cam_width, 128)
+    if heavy:
+        assert (np.diff(et.pt.starts.numpy()) == 3).sum() == heavy
     assert Rc <= Rcj and Rp <= Rpj
     O2, O2j = Rc * Mc, Rcj * Mcj
     for name in ("obs_uv", "obs_cam", "obs_pt", "obs_w"):
@@ -163,6 +187,17 @@ def test_tables_equal_jax(cam_width, n_pad):
         for name in ("slots", "seg", "other"):
             np.testing.assert_array_equal(getattr(rt, name).numpy(),
                                           np.asarray(getattr(rj, name))[:R])
+
+
+def test_packs_counted_by_device():
+    """Each pack_camera_major call adds one to COUNTS["packs_cpu"] when its
+    tables are built on the CPU, and none to packs_cuda."""
+    d = _problem(seed=3)
+    c0 = dict(TB.COUNTS)
+    for k in range(3):
+        TB.pack_camera_major(_port(d), pt_width=8 << k)
+        assert TB.COUNTS["packs_cpu"] - c0["packs_cpu"] == k + 1
+    assert TB.COUNTS["packs_cuda"] == c0["packs_cuda"]
 
 
 @pytest.mark.parametrize("with_intri", [False, True], ids=["D6", "D14"])

@@ -687,6 +687,146 @@ def test_row_solve_on_cuda_matches_cpu(cuda_device):
                                    atol=1e-4)
 
 
+# seeds of the GBA cell's problem and of the LBA cell's local problems
+GBA_SEED, LBA_SEED = 1000001, 3100000015
+
+
+@pytest.fixture(scope="module")
+def bal_problems():
+    """numpy problems of perfbench's BAL-shaped generator: the GBA cell's
+    whole problem ("gba", 1.26M observations, intrinsics fields set) and
+    4 of the LBA cell's local problems ("lba0".."lba3", about 48k
+    observations each)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from perfbench.gen import bal
+    from test_torch_ba_stall import _config
+
+    cfg = _config()
+    out = {"gba": bal.make_problem(cfg, GBA_SEED)["start"]}
+    prob = bal.make_problem(cfg, LBA_SEED)
+    start = dict(prob["start"], cam_intri=prob["truth"]["cam_intri"])
+    covis = bal.covisibility(start)
+    for k, c in enumerate(bal.local_centers(cfg["n_cameras"], 4, LBA_SEED)):
+        out[f"lba{k}"] = bal.local_problem(start, covis, int(c), 5)
+    return out
+
+
+def _pack_tensors(p, ell):
+    """Every tensor of a pack by name, and the RowIndex flags."""
+    out = {f"p.{f.name}": getattr(p, f.name) for f in dataclasses.fields(p)
+           if getattr(p, f.name) is not None}
+    for side in ("cam", "pt"):
+        ri = getattr(ell, side)
+        out.update({f"{side}.{f.name}": getattr(ri, f.name)
+                    for f in dataclasses.fields(ri)})
+    out.update({k: getattr(ell, k) for k in ("pt_uv", "pt_w", "pt_pos")})
+    return out
+
+
+def _moved(x, dev):
+    """x (a tensor, a dataclass of them, nested, or a tuple) with every
+    tensor moved to dev."""
+    if torch.is_tensor(x):
+        return x.to(dev)
+    if isinstance(x, tuple):
+        return tuple(_moved(v, dev) for v in x)
+    if dataclasses.is_dataclass(x):
+        return dataclasses.replace(x, **{
+            f.name: _moved(getattr(x, f.name), dev)
+            for f in dataclasses.fields(x)
+            if torch.is_tensor(getattr(x, f.name))
+            or dataclasses.is_dataclass(getattr(x, f.name))})
+    return x
+
+
+@pytest.mark.parametrize("name", ["gba", "lba0", "lba1", "lba2", "lba3"])
+def test_pack_on_cuda_equals_cpu_pack(cuda_device, bal_problems, name):
+    """pack_camera_major of a CPU problem onto the card (tables built on
+    the card) against the same pack built on the CPU and then moved: every
+    tensor equal in dtype, shape and value, each pack counted by its
+    device; on lba0, solve_ba from either pack gives the same final state
+    and info, bit for bit."""
+    from xrsfm_tpu_torch.optim import ba
+
+    p = ba.BAProblem.from_numpy("cpu", **bal_problems[name])
+    c0 = dict(ba.COUNTS)
+    got = ba.pack_camera_major(p, device=cuda_device)
+    want = ba.pack_camera_major(p)
+    assert ba.COUNTS["packs_cuda"] - c0["packs_cuda"] == 1
+    assert ba.COUNTS["packs_cpu"] - c0["packs_cpu"] == 1
+    g, w = _pack_tensors(*got), _pack_tensors(*want)
+    assert g.keys() == w.keys()
+    for k in g:
+        if not torch.is_tensor(w[k]):
+            assert g[k] == w[k], k
+            continue
+        assert g[k].device.type == "cuda", k
+        assert (g[k].dtype, g[k].shape) == (w[k].dtype, w[k].shape), k
+        assert torch.equal(g[k].cpu(), w[k]), k
+    if name == "lba0":
+        moved = _moved(want, cuda_device)
+        opts = ba.BAOptions(max_iters=5, huber_px=4.0, cg_iters=15,
+                            cg_tol=0.01)
+        s1, i1 = ba.solve_ba(got[0], opts, got[1])
+        s2, i2 = ba.solve_ba(moved[0], opts, moved[1])
+        assert i1 == i2
+        for f in ("cam_q", "cam_t", "cam_intri", "points"):
+            assert torch.equal(getattr(s1, f), getattr(s2, f)), f
+
+
+def test_pack_on_cuda_reads_the_card_once(cuda_device, bal_problems):
+    """Under torch.cuda.set_sync_debug_mode, a pack of a CPU problem onto
+    the card makes exactly one synchronising operation: the read of the
+    four table sizes (the inputs cross by non-blocking copies)."""
+    import warnings
+
+    from xrsfm_tpu_torch.optim import ba
+
+    p = ba.BAProblem.from_numpy("cpu", **bal_problems["lba1"])
+    ba.pack_camera_major(p, device=cuda_device)  # first-use set-up
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            ba.pack_camera_major(p, device=cuda_device)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    syncs = [str(x.message) for x in caught
+             if "synchroniz" in str(x.message)]
+    assert len(syncs) == 1, syncs
+
+
+def test_pack_on_cuda_leaves_only_its_result(cuda_device, bal_problems):
+    """The GBA problem (1.26M observations) packed onto the card: the
+    pack's own peak stays under 1 GiB above what was allocated before it;
+    after it returns, the allocated bytes have grown by the returned
+    tensors' bytes, rounded up to the allocator's 512-byte blocks, plus at
+    most 1 MiB for each tensor of 1 MiB or more (a cached block reused
+    unsplit), and fall back to where they were once the result is
+    dropped."""
+    from xrsfm_tpu_torch.optim import ba
+
+    p = ba.BAProblem.from_numpy("cpu", **bal_problems["gba"])
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = ba.pack_camera_major(p, device=cuda_device)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    grown = torch.cuda.memory_allocated() - base
+    storages = {t.untyped_storage().data_ptr(): t.untyped_storage().nbytes()
+                for t in _pack_tensors(*out).values() if torch.is_tensor(t)}
+    held = sum((b + 511) // 512 * 512 for b in storages.values())
+    large = sum(b >= 1 << 20 for b in storages.values())
+    assert peak < 1 << 30, peak
+    assert held <= grown <= held + large * (1 << 20), (grown, held)
+    del out
+    assert torch.cuda.memory_allocated() == base
+
+
 def _circle(n, radius):
     from xrsfm_tpu_torch.utils import geometry as G
 

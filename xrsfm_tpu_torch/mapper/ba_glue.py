@@ -169,10 +169,11 @@ def run_ba(
     written back, so they stay bit for bit (the JAX package writes back
     their float32 round trip).
 
-    The problem is packed camera-major on the host and moved to `device`
-    in one transfer, then solved in the row layout (solve_ba with its
-    EllIndex).  mesh (parallel.mesh.Mesh of more than one shard): solve
-    the COO problem through the observation-sharded LM of
+    The problem's fields move to `device`, where it is packed
+    camera-major (its ELL tables built there), then solved in the row
+    layout (solve_ba with its EllIndex).  mesh (parallel.mesh.Mesh of
+    more than one shard): solve the COO problem through the
+    observation-sharded LM of
     parallel/dist_ba instead, pose-only or intrinsics-refining, with its
     own schedule (as the JAX package passes it only max_iters and
     huber_px).

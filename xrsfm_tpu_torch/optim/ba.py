@@ -11,12 +11,13 @@ the JAX package:
     blocks W summed into segments by segment_sum.  parallel/dist_ba shards
     this layout over a device mesh.
   * Camera-major ELL (pack_camera_major, the main path: mapper/ba_glue
-    packs every single-device problem).  The table is reordered so that
-    each camera's observations are consecutive rows of at most 128 slots,
-    and a point-major index (rows of at most 32 slots) maps each point's
-    observations into it.  Camera data is read once a row, the camera
-    blocks are reductions over consecutive rows, and the point blocks are
-    recomputed in point order (_build_pt_blocks_native).  On a GPU the two
+    packs every single-device problem).  The table is reordered, on the
+    device that solves it, so that each camera's observations are
+    consecutive rows of at most 128 slots, and a point-major index (rows
+    of at most 32 slots) maps each point's observations into it.  Camera
+    data is read once a row, the camera blocks are reductions over
+    consecutive rows, and the point blocks are recomputed in point order
+    (_build_pt_blocks_native).  On a GPU the two
     per-iteration block builds are the hand-written kernels
     csrc/ba_cam_rows.cu and csrc/ba_pt_rows.cu (cam_rows / pt_rows: the
     kernel for CUDA tensors, the plain composition of this module's
@@ -83,12 +84,14 @@ _BAD_RESIDUAL = 12.0  # the reference's negative-depth guard constant
 # summed on the device and read with the final cost.  pcg_graph_captures /
 # pcg_graph_replays: the ELL solve's PCG iterations captured as a CUDA
 # graph (one an LM step that iterates) and replayed (one an iteration);
-# both stay 0 on the CPU.
+# both stay 0 on the CPU.  packs_*: pack_camera_major calls by the device
+# the tables were built on.
 COUNTS = {"solves_cuda": 0, "solves_cpu": 0, "intri_solves_cuda": 0,
           "intri_solves_cpu": 0, "row_solves_cuda": 0, "row_solves_cpu": 0,
           "dist_solves_cuda": 0, "dist_solves_cpu": 0,
           "lm_iters": 0, "cg_iters": 0, "lm_accepts": 0,
-          "pcg_graph_captures": 0, "pcg_graph_replays": 0}
+          "pcg_graph_captures": 0, "pcg_graph_replays": 0,
+          "packs_cuda": 0, "packs_cpu": 0}
 
 # Launches of the two row kernels by route, since reset_launch_counts():
 # the wrappers cam_rows / pt_rows count the kernel where they launch it and
@@ -181,7 +184,8 @@ class BAOptions:
 
 
 # ---------------------------------------------------------------------------
-# The camera-major ELL layout (host-side numpy, then one transfer)
+# The camera-major ELL layout (built where the tables are used: on the
+# problem's target device, by sorts, prefix sums, gathers and scatters)
 # ---------------------------------------------------------------------------
 
 
@@ -225,82 +229,74 @@ class EllIndex:
     pt_pos: torch.Tensor | None = None  # [Rc, Mc] int32
 
 
-def _bucket(n: int, lo: int = 8) -> int:
-    b = lo
-    while b < n:
-        b *= 2
-    return b
+def _counts(ids, n_seg: int):
+    """Observations a segment, [n_seg] int64 on ids' device (bincount
+    without its read of the largest id)."""
+    return torch.zeros(n_seg, dtype=torch.int64, device=ids.device).index_add_(
+        0, ids, torch.ones_like(ids))
 
 
-def _build_rows(ids, other_ids, n_seg, O_full, max_width, bucket_lo):
-    """Pack per-segment observation lists into rows of width
-    min(bucket(largest count), max_width), exactly as many rows as the
-    segments need (the JAX package rounds the row count up to a bucket of
-    XLA shapes; no kernel here needs that).  Returns numpy (slots, seg,
-    other, starts)."""
-    n = len(ids)
-    counts = np.bincount(ids, minlength=n_seg)
-    maxc = int(counts.max()) if n else 1
-    M = min(_bucket(max(maxc, 1), bucket_lo), max_width)
-    rows_per_seg = np.maximum((counts + M - 1) // M, 1)
-    starts = np.concatenate([[0], np.cumsum(rows_per_seg)])
-    seg = np.repeat(np.arange(n_seg, dtype=np.int32), rows_per_seg)
-    slots = np.full((int(starts[-1]), M), O_full, np.int32)
-    order = np.argsort(ids, kind="stable")
-    sorted_ids = ids[order]
-    seg_start = np.concatenate([[0], np.cumsum(counts)[:-1]])
-    pos = np.arange(n) - seg_start[sorted_ids]
-    slots[starts[sorted_ids] + pos // M, pos % M] = order
-    other_pad = np.concatenate([np.asarray(other_ids, np.int32),
-                                np.zeros(1, np.int32)])
-    return slots, seg, other_pad[slots], starts.astype(np.int32)
+def _row_shape(counts, max_width: int, bucket_lo: int):
+    """Row width M = min(bucket(largest count), max_width), bucket(c) the
+    least bucket_lo * 2^k >= c, and row count R = the sum over segments of
+    max(ceil(count / M), 1): exactly the rows the segments need (the JAX
+    package rounds R up to a bucket of XLA shapes; no kernel here needs
+    that).  0-dim tensors on counts' device, so that a pack reads all its
+    sizes in one fetch."""
+    widths = bucket_lo * 2 ** torch.arange(max_width.bit_length() + 1,
+                                           device=counts.device)
+    M = torch.where(widths >= counts.amax(), widths, max_width).amin(
+        ).clamp_max(max_width)
+    return M, ((counts + M - 1) // M).clamp_min(1).sum()
 
 
-_TORCH_DTYPES = {np.dtype(np.float32): torch.float32,
-                 np.dtype(np.int64): torch.int64,
-                 np.dtype(np.int32): torch.int32,
-                 np.dtype(np.bool_): torch.bool}
+def _build_rows(ids, counts, M: int, R: int):
+    """Pack per-segment observation lists into R rows of width M (the
+    sizes _row_shape gives), each segment's observations in their order in
+    `ids` (a stable sort, so numpy's kind="stable" argsort exactly).
+    Returns (sorted ids, order: the index into ids of each sorted entry,
+    flat: its slot in the [R * M] table, seg [R] int32, starts [n_seg + 1]
+    int32)."""
+    rows = ((counts + M - 1) // M).clamp_min(1)
+    starts = torch.cat([rows.new_zeros(1), rows.cumsum(0)])
+    seg = torch.repeat_interleave(rows, output_size=R).int()
+    sorted_ids, order = torch.sort(ids, stable=True)
+    base = starts[:-1] * M - (counts.cumsum(0) - counts)
+    flat = base[sorted_ids] + torch.arange(len(ids), device=ids.device)
+    return sorted_ids, order, flat, seg, starts.int()
 
 
-def _transfer(arrays, device):
-    """numpy arrays -> tensors on `device` through ONE host-to-device copy:
-    the arrays are laid end to end (8-byte aligned) in one byte buffer,
-    copied, and viewed back as tensors of their types and shapes."""
-    arrays = [np.ascontiguousarray(a) for a in arrays]
-    offs, n = [], 0
-    for a in arrays:
-        offs.append(n)
-        n += (a.nbytes + 7) // 8 * 8
-    buf = np.empty(max(n, 8), np.uint8)
-    for a, o in zip(arrays, offs):
-        buf[o:o + a.nbytes] = a.reshape(-1).view(np.uint8)
-    dev = torch.from_numpy(buf).to(device)
-    return [dev[o:o + a.nbytes].view(_TORCH_DTYPES[a.dtype]).reshape(a.shape)
-            for a, o in zip(arrays, offs)]
-
-
-def _np(a):
-    return a.cpu().numpy() if torch.is_tensor(a) else np.asarray(a)
+def _scatter(flat, values, size: int, fill):
+    """[size] table of values.dtype, values at the (unique) slots flat,
+    fill elsewhere."""
+    out = values.new_full((size,) + tuple(values.shape[1:]), fill)
+    out[flat] = values
+    return out
 
 
 def build_ell(obs_cam, obs_pt, n_cams: int, n_pts: int, n_valid=None,
               bucket_lo: int = 8) -> EllIndex:
-    """ELL tables of a flat COO table (the JAX package's build_ell; numpy on
-    the host).  Only the first n_valid observations take part (a padded
+    """ELL tables of a flat COO table (the JAX package's build_ell), built
+    on obs_cam's device (the CPU for numpy input) with one read of their
+    sizes.  Only the first n_valid observations take part (a padded
     table's weight-0 rows must not count).  Cameras get rows of at most
-    256 slots, points of at most 32.  The tables go to obs_cam's device
-    (the CPU for numpy input) in one transfer."""
-    dev = obs_cam.device if torch.is_tensor(obs_cam) else "cpu"
-    obs_cam, obs_pt = _np(obs_cam), _np(obs_pt)
-    O_full = len(obs_cam)
+    256 slots, points of at most 32."""
+    oc = torch.as_tensor(obs_cam).long()
+    op = torch.as_tensor(obs_pt, device=oc.device).long()
+    O_full = len(oc)
     n = O_full if n_valid is None else int(n_valid)
-    oc = obs_cam[:n].astype(np.int64)
-    op = obs_pt[:n].astype(np.int64)
-    # the `other` lookup spans the FULL table (slot O_full is padding)
-    t = _transfer(_build_rows(oc, obs_pt, n_cams, O_full, 256, bucket_lo)
-                  + _build_rows(op, obs_cam, n_pts, O_full, 32, bucket_lo),
-                  dev)
-    return EllIndex(cam=RowIndex(*t[:4]), pt=RowIndex(*t[4:]))
+    counts = _counts(oc[:n], n_cams), _counts(op[:n], n_pts)
+    Mc, Rc, Mp, Rp = torch.stack(_row_shape(counts[0], 256, bucket_lo)
+                                 + _row_shape(counts[1], 32, bucket_lo)
+                                 ).tolist()
+    sides = []
+    for ids, other, cnt, M, R in ((oc, op, counts[0], Mc, Rc),
+                                  (op, oc, counts[1], Mp, Rp)):
+        _, order, flat, seg, starts = _build_rows(ids[:n], cnt, M, R)
+        slots = _scatter(flat, order.int(), R * M, O_full)
+        sides.append(RowIndex(slots.view(R, M), seg, _scatter(
+            flat, other[order].int(), R * M, 0).view(R, M), starts))
+    return EllIndex(cam=sides[0], pt=sides[1])
 
 
 def pack_camera_major(p: BAProblem, n_valid=None, bucket_lo: int = 8,
@@ -309,72 +305,60 @@ def pack_camera_major(p: BAProblem, n_valid=None, bucket_lo: int = 8,
     JAX package's pack_camera_major).  Returns (packed problem, EllIndex)
     whose camera rows are consecutive slices of the table (contig), with
     the point-major index, pt_uv / pt_w and pt_pos.  Padding slots carry
-    obs_w = 0 and point id 0, so they vanish from every reduction.  Host
-    numpy, O(n log n); every tensor of the result goes to `device` (by
-    default p's) in one transfer."""
+    obs_w = 0 and point id 0, so they vanish from every reduction.
+
+    p's fields move to `device` (by default p's) as they are, and every
+    table is built there: two stable sorts, prefix sums, gathers and
+    scatters to unique slots, O(n log n), with one read of the four table
+    sizes (Mc, Rc, Lw, Rp).  Counted in COUNTS["packs_cuda" / "packs_cpu"]
+    by that device."""
     with span("xrsfm.ba.pack"):
-        dev = device if device is not None else p.cam_q.device
-        oc, op = _np(p.obs_cam), _np(p.obs_pt)
-        O_full = len(oc)
-        n = O_full if n_valid is None else int(n_valid)
-        C = p.cam_q.shape[0]
-        P = p.points.shape[0]
-        slots, seg, _, cam_starts = _build_rows(
-            oc[:n].astype(np.int64), op, C, O_full, cam_width, bucket_lo)
-        Rc, Mc = slots.shape
-        flat = slots.reshape(-1)
-        real = flat < O_full
-        O2 = Rc * Mc
-
-        def take(a):
-            a = _np(a)
-            out = np.zeros((O2,) + a.shape[1:], a.dtype)
-            out[real] = a[flat[real]]
-            return out
-
-        new_cam = np.repeat(seg, Mc).astype(np.int64)
-        new_pt = np.zeros(O2, np.int64)
-        new_pt[real] = op[flat[real]]
-        packed = dict(obs_uv=take(p.obs_uv), obs_cam=new_cam, obs_pt=new_pt,
-                      obs_w=take(p.obs_w))  # physical padding gets weight 0
-        # point-side rows over the REAL slots of the packed table
-        real_idx = np.nonzero(real)[0]
-        nr = len(real_idx)
-        cslots, pt_seg, _, pt_starts = _build_rows(
-            new_pt[real_idx], new_cam[real_idx], P, nr, pt_width, bucket_lo)
-        if nr:
-            pt_slots = np.where(cslots < nr,
-                                real_idx[np.minimum(cslots, nr - 1)],
-                                O2).astype(np.int32)
-        else:
-            pt_slots = np.full_like(cslots, O2)
-        pt_other = np.concatenate([new_cam, [0]]).astype(np.int32)[pt_slots]
-        # static point-major copies of (uv, w), from which the point blocks
-        # are recomputed in point order every LM iteration
-        pvalid = pt_slots < O2
-        pt_uv = np.zeros(pt_slots.shape + (2,), np.float32)
-        pt_uv[pvalid] = packed["obs_uv"][pt_slots[pvalid]]
-        pt_w = np.zeros(pt_slots.shape, np.float32)
-        pt_w[pvalid] = packed["obs_w"][pt_slots[pvalid]]
-        # reverse map: camera-major slot -> flat point-major position
-        flat_pt = pt_slots.reshape(-1)
-        pt_pos = np.full(O2, flat_pt.size, np.int32)  # sentinel on padding
-        src = np.nonzero(flat_pt < O2)[0]
-        pt_pos[flat_pt[src]] = src
-        fields = {f.name: (packed[f.name] if f.name in packed
-                           else _np(getattr(p, f.name)))
+        dev = torch.device(device) if device is not None else p.cam_q.device
+        COUNTS["packs_cuda" if dev.type == "cuda" else "packs_cpu"] += 1
+        # pageable host memory is staged before the copy call returns
+        fields = {f.name: getattr(p, f.name).to(
+                      dev, non_blocking=dev.type == "cuda")
                   for f in dataclasses.fields(p)
                   if getattr(p, f.name) is not None}
-        ell_arrays = [np.arange(O2, dtype=np.int32).reshape(Rc, Mc), seg,
-                      new_pt.astype(np.int32).reshape(Rc, Mc), cam_starts,
-                      pt_slots, pt_seg, pt_other, pt_starts,
-                      pt_uv, pt_w, pt_pos.reshape(Rc, Mc)]
-        t = _transfer(list(fields.values()) + ell_arrays, dev)
-        p2 = dataclasses.replace(p, **dict(zip(fields, t)))
-        e = t[len(fields):]
-        return p2, EllIndex(cam=RowIndex(*e[:4], contig=True),
-                            pt=RowIndex(*e[4:8]), pt_uv=e[8], pt_w=e[9],
-                            pt_pos=e[10])
+        O_full = len(fields["obs_cam"])
+        n = O_full if n_valid is None else int(n_valid)
+        oc, op = fields["obs_cam"][:n], fields["obs_pt"][:n]
+        cam_counts = _counts(oc, fields["cam_q"].shape[0])
+        pt_counts = _counts(op, fields["points"].shape[0])
+        Mc, Rc, Lw, Rp = torch.stack(
+            _row_shape(cam_counts, cam_width, bucket_lo)
+            + _row_shape(pt_counts, pt_width, bucket_lo)).tolist()
+        O2, Np = Rc * Mc, Rp * Lw
+        # camera rows: fc, the packed slot of each observation in camera
+        # order, ascends, so the real slots keep camera-major order below
+        cam_of, order, fc, cam_seg, cam_starts = _build_rows(
+            oc, cam_counts, Mc, Rc)
+        pt_of = op[order]
+        packed = dict(
+            obs_uv=_scatter(fc, fields["obs_uv"][order], O2, 0),
+            obs_w=_scatter(fc, fields["obs_w"][order], O2, 0),  # pad: 0
+            obs_cam=cam_seg.long()[:, None].expand(Rc, Mc).reshape(-1),
+            obs_pt=_scatter(fc, pt_of, O2, 0))
+        # point rows over the real slots, in camera-major order
+        _, pt_order, fp, pt_seg, pt_starts = _build_rows(
+            pt_of, pt_counts, Lw, Rp)
+        src = fc[pt_order]  # the packed slot of each point-major entry
+        # static point-major copies of (uv, w), from which the point blocks
+        # are recomputed in point order every LM iteration
+        ell = EllIndex(
+            cam=RowIndex(torch.arange(O2, dtype=torch.int32, device=dev
+                                      ).view(Rc, Mc), cam_seg,
+                         packed["obs_pt"].int().view(Rc, Mc), cam_starts,
+                         contig=True),
+            pt=RowIndex(_scatter(fp, src.int(), Np, O2).view(Rp, Lw),
+                        pt_seg,
+                        _scatter(fp, cam_of[pt_order].int(), Np, 0
+                                 ).view(Rp, Lw), pt_starts),
+            pt_uv=_scatter(fp, packed["obs_uv"][src], Np, 0).view(Rp, Lw, 2),
+            pt_w=_scatter(fp, packed["obs_w"][src], Np, 0).view(Rp, Lw),
+            # reverse map: camera-major slot -> flat point-major position
+            pt_pos=_scatter(src, fp.int(), O2, Np).view(Rc, Mc))
+        return dataclasses.replace(p, **dict(fields, **packed)), ell
 
 
 def _gather_obs(a, slots):
