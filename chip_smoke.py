@@ -1066,8 +1066,10 @@ def intrinsic_block_precision(m):
     eye3 = torch.eye(3, device="cuda")
     Ud = U + lam * (U * eye14) + 1e-8 * eye14
     Vinv = ba._inv3x3(V + lam * (V * eye3) + 1e-8 * eye3)
-    _, Si = ba._jacobi_blocks([p], Ud, Vinv, W,
-                              ba._TiedSpace(p.cam_kam, p.cam_q.shape[0]))
+    # the intrinsic blocks as optim/ba._block_jacobi sums them
+    Sd = ba._jacobi_blocks([p], Ud, Vinv, W)
+    Si = ba.segment_sum(Sd[:, 6:, 6:], p.cam_kam, p.cam_q.shape[0]) \
+        + 1e-7 * eye14[:8, :8]
     Si = Si[: int(p.cam_kam.max()) + 1]
     eye8 = torch.eye(8, device="cuda").expand(len(Si), 8, 8)
     inv32 = linalg.solve(Si, eye8).double()
@@ -2289,14 +2291,11 @@ def rows_f64(p, ell, with_intri):
     from xrsfm_tpu_torch.optim import ba
 
     p, ell = _as_f64(p), _as_f64(ell)
-    r, z, Jc, Jp = ba._residuals_and_jacobians_rows(p, ell, with_intri)
+    r, z, Jc, _ = ba._residuals_and_jacobians_rows(p, ell, with_intri)
     cost, w = ba._robust_cost_and_weight(
         r, z, p.obs_w.reshape(ell.cam.slots.shape), 4.0)
-    U, bc, Jcw = ba._build_normal_blocks_ell(
-        p, ell, r, Jc, Jp, w, pt_dtype=torch.float64, cam_only=True,
-        return_cam_w=True)
-    V, bp, (Jpg, spg) = ba._build_pt_blocks_native(p, ell, 4.0,
-                                                   pt_dtype=torch.float64)
+    U, bc, Jcw = ba._build_normal_blocks_ell(p, ell, r, Jc, w)
+    V, bp, (Jpg, spg) = ba._build_pt_blocks_native(p, ell, 4.0)
     return dict(cost=cost, U=U, bc=bc, Jcw=Jcw, V=V, bp=bp, Jpg=Jpg,
                 spg=spg)
 

@@ -3,8 +3,9 @@ tests solve with it (imports no JAX: the card's tests use it too).
 
 _Pcg runs PCG as state tensors that one in-place step updates, on a GPU
 replayed as a CUDA graph.  `lockstep(diffs, route)` is a subclass of it
-for _schur_solve_ell to build in its place: its run computes PCG with
-fresh tensors for every operation, each stop test read before its
+for _schur_solve_ell or _schur_solve to build in its place: its run
+computes PCG with fresh tensors for every operation, each stop test read
+before its
 iteration, and hands its x and Σ alpha ypt(p_k) on as the result; after
 each of its iterations the in-place step runs too (route "eager": called;
 "graph": captured once by ba._pcg_graph and replayed), and the largest
@@ -69,7 +70,7 @@ def lockstep(diffs, route="eager"):
             super().__init__(rhs, n_pts, ypt_reduce, S_matvec, precond,
                              dot, cg_tol)
 
-        def run(self, cg_iters):
+        def run(self, cg_iters, graph):
             dot = _dot(self.dot)
             rhs = self.rhs0
             x = torch.zeros_like(rhs)

@@ -161,17 +161,24 @@ def test_solve_counts_by_device():
     assert TB.COUNTS["cg_iters"] > 0
 
 
-@pytest.mark.parametrize("intri", [False, True], ids=["D6", "D14"])
-def test_pcg_step_reproduces_out_of_place_loop(monkeypatch, intri):
-    """solve_ba through the row layout, PCG as _Pcg's in-place step,
-    against the same solve with tests/pcg_reference.py's out-of-place loop
-    in _Pcg's place, which also runs the step in lockstep from each LM
-    step's setup: every PCG iterate, the final state, the info dict and
-    COUNTS["cg_iters"] bit for bit (D = 6 stops on the tolerance, the
-    tied D = 14 solve at cg_iters); no graph captured on the CPU."""
+@pytest.mark.parametrize("layout,intri", [
+    pytest.param("rows", False, id="D6"), pytest.param("rows", True, id="D14"),
+    pytest.param("coo", False, id="coo-D6"),
+    pytest.param("coo", True, id="coo-D14")])
+def test_pcg_step_reproduces_out_of_place_loop(monkeypatch, layout, intri):
+    """solve_ba through the row layout (D6, D14) or the COO layout (coo-),
+    PCG as _Pcg's in-place step, against the same solve with
+    tests/pcg_reference.py's out-of-place loop in _Pcg's place, which also
+    runs the step in lockstep from each LM step's setup: every PCG
+    iterate, the final state, the info dict and COUNTS["cg_iters"] bit for
+    bit (D = 6 stops on the tolerance, the tied D = 14 solve at cg_iters);
+    no graph captured on the CPU.  With the reference loop in _Pcg's
+    place the COO solve back-substitutes from a point sum of the loop's
+    x, so the whole solve is the out-of-place COO loop's."""
     d = PR.problem(intri)
     opts = PR.options(intri)
-    p, ell = TB.pack_camera_major(_port(d))
+    p, ell = (TB.pack_camera_major(_port(d)) if layout == "rows"
+              else (_port(d), None))
     TB.reset_counts()
     got, info = TB.solve_ba(p, opts, ell)
     counts = dict(TB.COUNTS)

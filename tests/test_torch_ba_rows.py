@@ -1,11 +1,12 @@
 """The port's camera-major row-native bundle adjustment (pack_camera_major,
-build_ell, the row functions, _build_normal_blocks_ell,
-_build_pt_blocks_native, _schur_solve_ell and solve_ba(p, opts, ell) in
+the row functions, _build_normal_blocks_ell, _build_pt_blocks_native,
+_schur_solve_ell and solve_ba(p, opts, ell) in
 xrsfm_tpu_torch/optim/ba.py) against the JAX package's
 (xrsfm_tpu/optim/ba.py) on the same seeded numpy problems, on the CPU.
 
-The JAX functions run at float32 (pt_dtype / compute_dtype float32,
-precise=True, "highest" matmul precision).  The JAX package rounds its
+The JAX functions run at float32 (their pt_dtype / compute_dtype
+float32, precise=True, "highest" matmul precision); the port's work in
+the problem's dtype, float32 here.  The JAX package rounds its
 row counts up to a bucket of XLA shapes; the port's tables have exactly
 the rows the segments need, so the JAX tables' first rows are compared,
 and its padding sentinels (table length, point-major size) are mapped to
@@ -56,6 +57,19 @@ def _problem(seed=0, n_cams=12, n_pts=300, intri=False, fixes=False):
         d["fix_rot"] = np.zeros(n_cams, bool)
         d["fix_rot"][[3, 8]] = True
     return d
+
+
+def _heavy_points(d, heavy):
+    """d with points 0..heavy-1 seen again by every camera (pixel (300,
+    300), weight 1): with 12 cameras a point of 19 observations, three
+    point rows of 8 slots."""
+    n_cams = len(d["cam_q"])
+    extra = dict(obs_cam=np.tile(np.arange(n_cams), heavy),
+                 obs_pt=np.repeat(np.arange(heavy), n_cams),
+                 obs_w=np.ones(n_cams * heavy),
+                 obs_uv=np.full((n_cams * heavy, 2), 300.0))
+    return dict(d, **{k: np.concatenate([d[k], v.astype(d[k].dtype)])
+                      for k, v in extra.items()})
 
 
 def _port(d):
@@ -119,20 +133,16 @@ def test_tables_equal_jax(cam_width, n_pad, case):
     n_valid padding (weight-0 rows at camera 0 and point 0 past n_valid),
     with points over several rows (pt_width 8, points 0-4 seen again by
     every camera: 19 observations), a camera with no observation (its one
-    empty row), no valid observation (n_valid 0) and bucket_lo 16, and
-    build_ell: every table equals the JAX package's first rows, array
-    for array (padding sentinels mapped); starts[s] is the first row of
-    segment s."""
+    empty row), no valid observation (n_valid 0) and bucket_lo 16: every
+    table equals the JAX package's first rows, array for array (padding
+    sentinels mapped); starts[s] is the first row of segment s."""
     case = dict(case)
     d = _problem(seed=1)
     keep = d["obs_cam"] != case.pop("drop_cam", -1)
+    for k in ("obs_cam", "obs_pt", "obs_w", "obs_uv"):
+        d[k] = d[k][keep]
     heavy = case.pop("heavy_pts", 0)
-    extra = dict(obs_cam=np.tile(np.arange(12), heavy),
-                 obs_pt=np.repeat(np.arange(heavy), 12),
-                 obs_w=np.ones(12 * heavy),
-                 obs_uv=np.full((12 * heavy, 2), 300.0))
-    for k in extra:
-        d[k] = np.concatenate([d[k][keep], extra[k].astype(d[k].dtype)])
+    d = _heavy_points(d, heavy)
     n = len(d["obs_cam"])
     if n_pad:
         for k, fill in (("obs_cam", 0), ("obs_pt", 0), ("obs_w", 0.0)):
@@ -171,22 +181,11 @@ def test_tables_equal_jax(cam_width, n_pad, case):
         assert starts[0] == 0 and starts[-1] == R
         np.testing.assert_array_equal(rt.seg.numpy()[starts[:-1]],
                                       np.arange(len(starts) - 1))
-    assert et.cam.contig and not et.pt.contig
     np.testing.assert_array_equal(et.pt_uv.numpy(), np.asarray(ej.pt_uv)[:Rp])
     np.testing.assert_array_equal(et.pt_w.numpy(), np.asarray(ej.pt_w)[:Rp])
     np.testing.assert_array_equal(
         et.pt_pos.numpy(),
         _sentinel(np.asarray(ej.pt_pos)[:Rc], Rpj * Lw, Rp * Lw))
-
-    # the flat tables of build_ell (sentinel: the table length, both)
-    ft = TB.build_ell(_port(d).obs_cam, _port(d).obs_pt, 12, 300, **kw)
-    fj = JB.build_ell(d["obs_cam"], d["obs_pt"], 12, 300, **kw)
-    for side in ("cam", "pt"):
-        rt, rj = getattr(ft, side), getattr(fj, side)
-        R = rt.slots.shape[0]
-        for name in ("slots", "seg", "other"):
-            np.testing.assert_array_equal(getattr(rt, name).numpy(),
-                                          np.asarray(getattr(rj, name))[:R])
 
 
 def test_packs_counted_by_device():
@@ -223,46 +222,37 @@ def test_row_residuals_and_jacobians_match_jax(with_intri):
     assert torch.equal(r2, r) and torch.equal(z2, z)
 
 
-@pytest.mark.parametrize("branch", ["row_cam_only", "row_gathers", "flat",
-                                    "pt_native", "D14"])
+@pytest.mark.parametrize("branch", ["row_cam_only", "row_narrow",
+                                    "pt_native", "pt_native_narrow", "D14"])
 def test_normal_blocks_match_jax(branch):
-    """_build_normal_blocks_ell (row-native with cam_only / return_cam_w
-    and with return_pt_gathers; the flat gather branch) and
-    _build_pt_blocks_native, with fix_cam, fix_trans, fix_pt and fix_rot,
-    against the JAX package at pt_dtype float32: U, V, bc, bp within 1e-4
-    of each array's largest entry, Jcw, Jpg and spg within 1e-5 (the
-    port's point-native Jpg is zero on slots of weight 0, padding and the
+    """_build_normal_blocks_ell (the camera rows) and
+    _build_pt_blocks_native (the point rows), with fix_cam, fix_trans,
+    fix_pt and fix_rot, against the JAX package's (its cam_only /
+    return_cam_w branch) at pt_dtype float32: U, V, bc, bp within 1e-4 of
+    each array's largest entry, Jcw, Jpg and spg within 1e-5 (the port's
+    point-native Jpg is zero on slots of weight 0, padding and the
     guard's, where the JAX package keeps the Jacobian that the weight
-    then zeroes).  The JAX
-    flat branch casts its camera operands to bfloat16 whatever pt_dtype
-    says, so the port's flat U and bc are held to the JAX package's COO
-    _build_normal_blocks (float32) instead.  The plain cam_rows / pt_rows
+    then zeroes).  The narrow cases pack camera rows of 8 slots (every
+    camera over many rows), or point rows of 8 slots with points 0-4 seen
+    by every camera (three rows each).  The plain cam_rows / pt_rows
     equal their compositions."""
     with_intri = branch == "D14"
     d = _problem(seed=3, intri=with_intri, fixes=True)
-    pt, et, pj, ej = _packed(d)
+    kw = {}
+    if branch == "row_narrow":
+        kw = dict(cam_width=8)
+    elif branch == "pt_native_narrow":
+        d, kw = _heavy_points(d, 5), dict(pt_width=8)
+    pt, et, pj, ej = _packed(d, **kw)
     Rc, Rp = et.cam.slots.shape[0], et.pt.slots.shape[0]
+    side = et.pt if branch.startswith("pt_native") else et.cam
+    if branch.endswith("narrow"):
+        assert side.slots.shape[1] == 8
+        assert (np.diff(side.starts.numpy()) > 1).any()
     H = 4.0
     with jax.default_matmul_precision("highest"):
-        if branch == "flat":
-            p0 = _port(d)
-            fl = TB.build_ell(p0.obs_cam, p0.obs_pt, 12, 300)
-            fj = JB.build_ell(d["obs_cam"], d["obs_pt"], 12, 300)
-            pjf = _jax(d)
-            r, z, Jc, Jp = TB._residuals_and_jacobians(p0)
-            _, w = TB._robust_cost_and_weight(r, z, p0.obs_w, H)
-            U, V, bc, bp, (Jpg, spg) = TB._build_normal_blocks_ell(
-                p0, fl, r, Jc, Jp, w, return_pt_gathers=True,
-                pt_dtype=torch.float32)
-            rj, zj, Jcj, Jpj = JB._residuals_and_jacobians(pjf)
-            _, wj = JB._robust_cost_and_weight(rj, zj, pjf.obs_w, H)
-            _, Vj, _, bpj, (Jpgj, spgj) = JB._build_normal_blocks_ell(
-                pjf, fj, rj, Jcj, Jpj, wj, return_pt_gathers=True, **_F32)
-            Uj, _, _, bcj, _ = JB._build_normal_blocks(pjf, rj, Jcj, Jpj, wj)
-            Rp = fl.pt.slots.shape[0]
-        elif branch == "pt_native":
-            V, bp, (Jpg, spg) = TB._build_pt_blocks_native(
-                pt, et, H, pt_dtype=torch.float32)
+        if branch.startswith("pt_native"):
+            V, bp, (Jpg, spg) = TB._build_pt_blocks_native(pt, et, H)
             Vj, bpj, (Jpgj, spgj) = JB._build_pt_blocks_native(
                 pj, ej, H, **_F32)
             V2, bp2, (Jpg2, spg2) = TB.pt_rows(pt, et, H)
@@ -278,36 +268,26 @@ def test_normal_blocks_match_jax(branch):
             cj, wj = JB._robust_cost_and_weight(
                 rj, zj, pj.obs_w.reshape(ej.cam.slots.shape), H)
             assert float(cost) == pytest.approx(float(cj), rel=1e-5)
-            if branch == "row_gathers":
-                U, V, bc, bp, (Jpg, spg) = TB._build_normal_blocks_ell(
-                    pt, et, r, Jc, Jp, w, return_pt_gathers=True,
-                    pt_dtype=torch.float32)
-                Uj, Vj, bcj, bpj, (Jpgj, spgj) = JB._build_normal_blocks_ell(
-                    pj, ej, rj, Jcj, Jpj, wj, return_pt_gathers=True, **_F32)
-            else:
-                U, bc, Jcw = TB._build_normal_blocks_ell(
-                    pt, et, r, Jc, Jp, w, cam_only=True, return_cam_w=True,
-                    pt_dtype=torch.float32)
-                Uj, bcj, Jcwj = JB._build_normal_blocks_ell(
-                    pj, ej, rj, Jcj, Jpj, wj, cam_only=True,
-                    return_cam_w=True, **_F32)
-                _close(Jcw, np.asarray(Jcwj)[:Rc], 1e-5, "Jcw")
-                c2, U2, bc2, Jcw2 = TB.cam_rows(pt, et, H, with_intri)
-                assert all(torch.equal(a, b) for a, b in
-                           ((cost, c2), (U, U2), (bc, bc2), (Jcw, Jcw2)))
-    if branch != "pt_native":
+            U, bc, Jcw = TB._build_normal_blocks_ell(pt, et, r, Jc, w)
+            Uj, bcj, Jcwj = JB._build_normal_blocks_ell(
+                pj, ej, rj, Jcj, Jpj, wj, cam_only=True,
+                return_cam_w=True, **_F32)
+            _close(Jcw, np.asarray(Jcwj)[:Rc], 1e-5, "Jcw")
+            c2, U2, bc2, Jcw2 = TB.cam_rows(pt, et, H, with_intri)
+            assert all(torch.equal(a, b) for a, b in
+                       ((cost, c2), (U, U2), (bc, bc2), (Jcw, Jcw2)))
+    if side is et.cam:
         _close(U, Uj, 1e-4, "U")
         _close(bc, bcj, 1e-4, "bc")
         m = TB._cam_colmask(pt, with_intri).numpy()
         assert not U.numpy()[m == 0].any()
         assert not U.numpy()[[0, 5], :6].any()
         assert not bc.numpy()[[3, 8], :3].any()
-    if branch in ("row_gathers", "flat", "pt_native"):
+    else:
         _close(V, Vj, 1e-4, "V")
         _close(bp, bpj, 1e-4, "bp")
-        Jpgj = np.asarray(Jpgj)[:Rp]
-        if branch == "pt_native":
-            Jpgj = Jpgj * (np.asarray(spgj)[:Rp, :, :1, None] != 0)
+        Jpgj = np.asarray(Jpgj)[:Rp] * (np.asarray(spgj)[:Rp, :, :1, None]
+                                         != 0)
         _close(Jpg, Jpgj, 1e-5, "Jpg")
         _close(spg, np.asarray(spgj)[:Rp], 1e-5, "spg")
         assert not V.numpy()[d["fix_pt"]].any()
@@ -315,78 +295,76 @@ def test_normal_blocks_match_jax(branch):
 
 def _schur_inputs(mode):
     """(port args, JAX args, problems) of one _schur_solve_ell call in
-    `mode`, the JAX args the port's inputs padded to the JAX rows."""
-    with_intri = mode == "tied"
+    `mode` (weighted or tied, the D = 14 tied-intrinsics space; _narrow:
+    camera and point rows of 8 slots with points 0-4 seen by every
+    camera, so that pt_pos crosses segments of several rows on both
+    sides), the JAX args the port's inputs padded to the JAX rows, with
+    the Jc, Jp and w the JAX function takes."""
+    with_intri = mode.startswith("tied")
     d = _problem(seed=5, intri=with_intri, fixes=True)
-    H = 4.0
-    if mode == "flat":
-        p = _port(d)
-        e = TB.build_ell(p.obs_cam, p.obs_pt, 12, 300)
-        pj, ej = _jax(d), JB.build_ell(d["obs_cam"], d["obs_pt"], 12, 300)
-        r, z, Jc, Jp = TB._residuals_and_jacobians(p)
-        _, w = TB._robust_cost_and_weight(r, z, p.obs_w, H)
-        U, V, bc, bp = TB._build_normal_blocks_ell(
-            p, e, r, Jc, Jp, w, pt_dtype=torch.float32)
-        t = (U, V, bc, bp, Jc, Jp, w, None, None)
-        j = tuple(jnp.asarray(a.numpy()) for a in t[:7]) + (None, None)
-        return p, e, t, pj, ej, j
-    p, e, pj, ej = _packed(d)
+    kw = {}
+    if mode.endswith("narrow"):
+        d, kw = _heavy_points(d, 5), dict(cam_width=8, pt_width=8)
+    p, e, pj, ej = _packed(d, **kw)
+    if mode.endswith("narrow"):
+        for side in (e.cam, e.pt):
+            assert side.slots.shape[1] == 8
+            assert (np.diff(side.starts.numpy()) > 1).any()
     Rcj, Rpj = ej.cam.slots.shape[0], ej.pt.slots.shape[0]
+    H = 4.0
     r, z, Jc, Jp = TB._residuals_and_jacobians_rows(p, e, with_intri)
     _, w = TB._robust_cost_and_weight(r, z, p.obs_w.reshape(e.cam.slots.shape),
                                       H)
     U, bc, camw = TB.cam_rows(p, e, H, with_intri)[1:]
     V, bp, ptg = TB.pt_rows(p, e, H)
-    if mode == "row":
-        ptg = camw = None
-    elif mode == "pt_major":
-        camw = None
-    t = (U, V, bc, bp, Jc, Jp, w, ptg, camw)
 
     def jx(a, rows):
         return jnp.asarray(_pad(a.numpy(), rows))
 
     j = tuple(jnp.asarray(a.numpy()) for a in (U, V, bc, bp)) + (
         jx(Jc, Rcj), jx(Jp, Rcj), jx(w, Rcj),
-        None if ptg is None else tuple(jx(a, Rpj) for a in ptg),
-        None if camw is None else jx(camw, Rcj))
-    return p, e, t, pj, ej, j
+        tuple(jx(a, Rpj) for a in ptg), jx(camw, Rcj))
+    return p, e, (U, V, bc, bp, ptg, camw), pj, ej, j
 
 
-@pytest.mark.parametrize("mode", ["weighted", "pt_major", "row", "flat",
-                                  "tied"])
+@pytest.mark.parametrize("mode", ["weighted", "tied", "weighted_narrow",
+                                  "tied_narrow", "weighted_lam10"])
 def test_schur_solve_ell_matches_jax(mode):
-    """_schur_solve_ell in its modes (weighted point-major, point-major,
-    camera-major Z, the flat gathers, the tied-intrinsics space at D = 14)
-    on the same inputs as the JAX package's at compute_dtype float32 under
-    "highest" precision: 4 PCG iterations at lambda 1e-3, dx_c and dx_p
-    within 1e-4 of their largest entry."""
+    """_schur_solve_ell (the weighted point-major solve; the
+    tied-intrinsics space at D = 14; both at rows of 8 slots) on the same
+    inputs as the JAX package's weighted point-major mode at
+    compute_dtype float32 under "highest" precision: 4 PCG iterations at
+    lambda 1e-3 (10 for lam10, the damped regime after rejections), dx_c
+    and dx_p within 1e-4 of their largest entry."""
     p, e, t, pj, ej, j = _schur_inputs(mode)
-    U, V, bc, bp, Jc, Jp, w, ptg, camw = t
-    lam = torch.tensor(1e-3)
-    dx_c, dx_p = TB._schur_solve_ell(
-        p, e, U, V, bc, bp, Jc, Jp, w, lam, 4, 1e-6,
-        compute_dtype=torch.float32, pt_gathers=ptg, cam_w=camw)
+    lam = 10.0 if mode == "weighted_lam10" else 1e-3
+    U, V, bc, bp, ptg, camw = t
+    dx_c, dx_p = TB._schur_solve_ell(p, e, U, V, bc, bp, torch.tensor(lam),
+                                     4, 1e-6, ptg, camw)
     with jax.default_matmul_precision("highest"):
         dcj, dpj = jax.jit(
             JB._schur_solve_ell,
             static_argnames=("cg_iters", "cg_tol", "compute_dtype"))(
-            pj, ej, *j[:7], jnp.float32(1e-3), cg_iters=4, cg_tol=1e-6,
+            pj, ej, *j[:7], jnp.float32(lam), cg_iters=4, cg_tol=1e-6,
             compute_dtype=jnp.float32, pt_gathers=j[7], cam_w=j[8])
     _close(dx_c, dcj, 1e-4, "dx_c")
     _close(dx_p, dpj, 1e-4, "dx_p")
-    assert dx_c.shape[1] == (14 if mode == "tied" else 6)
+    assert dx_c.shape[1] == (14 if mode.startswith("tied") else 6)
 
 
-@pytest.mark.parametrize("case", ["cg2", "cg15", "flat", "intri"])
+@pytest.mark.parametrize("case", ["cg2", "cg15", "narrow", "intri"])
 def test_solve_ba_ell_matches_jax_and_coo(case):
     """solve_ba(p, opts, ell) on a 20-camera, 500-point problem (bench
-    settings; the intrinsics case from a 3% focal error at Huber 32 px)
+    settings; the intrinsics case from a 3% focal error at Huber 32 px;
+    the narrow case with 12 observations a point, both packages packed
+    at camera and point rows of 8 slots, so that points span two rows)
     against the JAX package's solve_ba(p, BAOptions(precise=True), ell) on
     its own packing, and against the port's COO solve: initial and final
     costs within rtol 1e-3 and iteration counts equal (the tolerances of
-    tests/test_torch_ba.py); row_solves_cpu counted only on the row path."""
-    d = synth.ba_problem(n_cams=20, n_pts=500, seed=0)
+    tests/test_torch_ba.py); one row solve counted."""
+    narrow = case == "narrow"
+    d = synth.ba_problem(n_cams=20, n_pts=500, obs_per_pt=12 if narrow
+                         else 7, seed=0)
     opts = dict(max_iters=10, cg_iters=15 if case == "cg15" else 2,
                 huber_px=4.0, lam_init=1e-4)
     if case == "intri":
@@ -396,15 +374,13 @@ def test_solve_ba_ell_matches_jax_and_coo(case):
                  fix_intri=np.tile(~free[None], (20, 1)),
                  tie_f=np.full(20, bool(tie)))
         opts.update(huber_px=32.0, optimize_intrinsics=True)
-    if case == "flat":
-        pt = _port(d)
-        et = TB.build_ell(pt.obs_cam, pt.obs_pt, 20, 500)
-        pj, ej = _jax(d), JB.build_ell(d["obs_cam"], d["obs_pt"], 20, 500)
-    else:
-        pt, et, pj, ej = _packed(d)
+    pt, et, pj, ej = _packed(d, **(dict(cam_width=8, pt_width=8) if narrow
+                                   else {}))
+    if narrow:
+        assert (np.diff(et.pt.starts.numpy()) == 2).any()
     TB.reset_counts()
     st, it = TB.solve_ba(pt, TB.BAOptions(**opts), et)
-    assert TB.COUNTS["row_solves_cpu"] == (0 if case == "flat" else 1)
+    assert TB.COUNTS["row_solves_cpu"] == 1
     sj, ij = JB.solve_ba(pj, JB.BAOptions(precise=True, **opts), ej)
     sc, ic = TB.solve_ba(_port(d), TB.BAOptions(**opts))
     for k in ("initial_cost", "final_cost"):

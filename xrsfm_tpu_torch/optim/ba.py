@@ -23,13 +23,14 @@ the JAX package:
     kernel for CUDA tensors, the plain composition of this module's
     functions for CPU tensors).  The Schur solve keeps the factored
     Y = Jcᵀ Z form (_schur_solve_ell) and never builds the [O, D, 3]
-    coupling blocks.  A flat ELL (build_ell, contig False) runs the same
-    solve through gathers.
+    coupling blocks.  The JAX package's flat ELL layout is not ported:
+    every ELL problem is packed camera-major.
 
 Common to both:
   * Points are marginalized with closed-form 3x3 inverses and the reduced
     camera system is solved matrix-free by block-Jacobi PCG (Ceres'
-    SCHUR_JACOBI).
+    SCHUR_JACOBI): one damping (_damped), one preconditioner
+    (_block_jacobi) and one PCG loop (_Pcg) serve both layouts.
   * Huber robustness is IRLS re-weighting; the reference's negative-depth
     guard (constant residual (12, 12), cost_factor_ceres.h:29-32) becomes
     zero IRLS weight and a constant cost.  With the intrinsics free, a
@@ -50,13 +51,13 @@ Common to both:
 
 The LM and PCG loops run on the host: each stop test reads one scalar
 from the device.  On a GPU each PCG iteration of the ELL solve is one
-CUDA graph, captured once an LM step and replayed an iteration (_Pcg),
-and solve_ba runs on a stream of its own (_on_ba_stream).
+CUDA graph, captured once an LM step and replayed an iteration (_Pcg);
+the COO solve's sums may cross devices and processes, so its PCG runs
+eagerly.  solve_ba runs on a stream of its own (_on_ba_stream).
 Everything solve_ba runs is float32, on a GPU inside
-`device.full_precision()` (no TF32).  The ELL functions keep the JAX
-package's pt_dtype / compute_dtype arguments (bfloat16 there by default,
-the JAX package's bf16 Schur operands); solve_ba and the tools pass
-float32.
+`device.full_precision()` (no TF32); the functions work in the dtype of
+the problem they are given (the JAX package's bf16 Schur operands are
+not ported).
 """
 
 from __future__ import annotations
@@ -196,10 +197,10 @@ class RowIndex:
     The observations of each segment (camera / point) are packed into
     rows of a fixed width M; a heavy segment spans several consecutive
     rows, so padding is at most M - 1 a segment.  A per-segment reduction
-    is then a per-row reduction and a sum over the segment's rows.  With
-    `contig` (pack_camera_major's camera side) the observation table
-    itself is stored in this row order, and the row view of a
-    per-observation array is a reshape."""
+    is then a per-row reduction and a sum over the segment's rows.  The
+    observation table itself is stored in the camera side's row order
+    (pack_camera_major), so the camera-row view of a per-observation
+    array is a reshape."""
 
     slots: torch.Tensor  # [R, M] int32 flat observation index, O on padding
     seg: torch.Tensor  # [R] int32 segment id of each row (non-decreasing)
@@ -207,26 +208,24 @@ class RowIndex:
     # [n_seg + 1] int32: the rows of segment s are starts[s]..starts[s+1]-1
     # (every segment has at least one row); the row kernels loop over them
     starts: torch.Tensor
-    contig: bool = False
 
 
 @dataclasses.dataclass
 class EllIndex:
-    """ELL slot tables of a problem (build_ell, pack_camera_major).
+    """ELL slot tables of a problem packed by pack_camera_major.
 
-    pt_uv / pt_w are pack_camera_major's point-major copies of the pixel
-    observations and base weights, from which the point blocks are
-    recomputed in point order (_build_pt_blocks_native); they mirror
-    obs_uv / obs_w at pack time.  pt_pos maps each camera-major slot to
-    its position in the flat point-major order (Rp * Lw on padding), so
-    that small per-slot results computed point-major cross back to the
-    camera rows."""
+    pt_uv / pt_w are point-major copies of the pixel observations and base
+    weights, from which the point blocks are recomputed in point order
+    (_build_pt_blocks_native); they mirror obs_uv / obs_w at pack time.
+    pt_pos maps each camera-major slot to its position in the flat
+    point-major order (Rp * Lw on padding), so that small per-slot results
+    computed point-major cross back to the camera rows."""
 
     cam: RowIndex  # camera-major rows
     pt: RowIndex  # point-major rows
-    pt_uv: torch.Tensor | None = None  # [Rp, Lw, 2]
-    pt_w: torch.Tensor | None = None  # [Rp, Lw]
-    pt_pos: torch.Tensor | None = None  # [Rc, Mc] int32
+    pt_uv: torch.Tensor  # [Rp, Lw, 2]
+    pt_w: torch.Tensor  # [Rp, Lw]
+    pt_pos: torch.Tensor  # [Rc, Mc] int32
 
 
 def _counts(ids, n_seg: int):
@@ -274,37 +273,12 @@ def _scatter(flat, values, size: int, fill):
     return out
 
 
-def build_ell(obs_cam, obs_pt, n_cams: int, n_pts: int, n_valid=None,
-              bucket_lo: int = 8) -> EllIndex:
-    """ELL tables of a flat COO table (the JAX package's build_ell), built
-    on obs_cam's device (the CPU for numpy input) with one read of their
-    sizes.  Only the first n_valid observations take part (a padded
-    table's weight-0 rows must not count).  Cameras get rows of at most
-    256 slots, points of at most 32."""
-    oc = torch.as_tensor(obs_cam).long()
-    op = torch.as_tensor(obs_pt, device=oc.device).long()
-    O_full = len(oc)
-    n = O_full if n_valid is None else int(n_valid)
-    counts = _counts(oc[:n], n_cams), _counts(op[:n], n_pts)
-    Mc, Rc, Mp, Rp = torch.stack(_row_shape(counts[0], 256, bucket_lo)
-                                 + _row_shape(counts[1], 32, bucket_lo)
-                                 ).tolist()
-    sides = []
-    for ids, other, cnt, M, R in ((oc, op, counts[0], Mc, Rc),
-                                  (op, oc, counts[1], Mp, Rp)):
-        _, order, flat, seg, starts = _build_rows(ids[:n], cnt, M, R)
-        slots = _scatter(flat, order.int(), R * M, O_full)
-        sides.append(RowIndex(slots.view(R, M), seg, _scatter(
-            flat, other[order].int(), R * M, 0).view(R, M), starts))
-    return EllIndex(cam=sides[0], pt=sides[1])
-
-
 def pack_camera_major(p: BAProblem, n_valid=None, bucket_lo: int = 8,
                       cam_width: int = 128, pt_width: int = 32, device=None):
     """Reorder and physically pad the observation table camera-major (the
     JAX package's pack_camera_major).  Returns (packed problem, EllIndex)
-    whose camera rows are consecutive slices of the table (contig), with
-    the point-major index, pt_uv / pt_w and pt_pos.  Padding slots carry
+    whose camera rows are consecutive slices of the table, with the
+    point-major index, pt_uv / pt_w and pt_pos.  Padding slots carry
     obs_w = 0 and point id 0, so they vanish from every reduction.
 
     p's fields move to `device` (by default p's) as they are, and every
@@ -348,8 +322,7 @@ def pack_camera_major(p: BAProblem, n_valid=None, bucket_lo: int = 8,
         ell = EllIndex(
             cam=RowIndex(torch.arange(O2, dtype=torch.int32, device=dev
                                       ).view(Rc, Mc), cam_seg,
-                         packed["obs_pt"].int().view(Rc, Mc), cam_starts,
-                         contig=True),
+                         packed["obs_pt"].int().view(Rc, Mc), cam_starts),
             pt=RowIndex(_scatter(fp, src.int(), Np, O2).view(Rp, Lw),
                         pt_seg,
                         _scatter(fp, cam_of[pt_order].int(), Np, 0
@@ -368,15 +341,6 @@ def _gather_obs(a, slots):
     g = a[slots.clamp_max(O - 1)]
     valid = (slots < O).to(a.dtype)
     return g * valid.reshape(valid.shape + (1,) * (a.dim() - 1))
-
-
-def _gather_rows(a, ri: RowIndex):
-    """A per-observation array in ELL row layout [R, M, ...]: a reshape
-    when the table is stored in this order (contig)."""
-    R, M = ri.slots.shape
-    if ri.contig:
-        return a.reshape((R, M) + tuple(a.shape[1:]))
-    return _gather_obs(a, ri.slots)
 
 
 def _gather(p: BAProblem):
@@ -734,24 +698,56 @@ class _PlainSpace:
         return torch.sum(a * b, dim=None, out=out)
 
 
-def _jacobi_blocks(ps, Ud, Vinv, W, space, reduce_fn=_single):
-    """The blocks the preconditioner inverts: the diagonal blocks of the
-    reduced camera system S; with intrinsics, a 6x6 pose block per camera
-    and an 8x8 intrinsic block per intrinsic block (the blocks' cameras
-    summed).  The W Vinv W^T sum crosses shards (reduce_fn); the
-    intrinsic blocks' sum acts on reduced [C, ...] blocks.  Returns (pose
-    or whole blocks [C, D, D], intrinsic blocks [C, 8, 8] or None)."""
+def _damped(U, V, lam):
+    """Multiplicative LM damping on the block diagonals.  Returns (Ud, the
+    inverse of the damped V, eye(D) in U's dtype)."""
+    D = U.shape[-1]
+    eyeD = torch.eye(D, dtype=U.dtype, device=U.device)
+    eye3 = torch.eye(3, dtype=U.dtype, device=U.device)
+    Ud = U + lam * (U * eyeD) + 1e-8 * eyeD
+    Vd = V + lam * (V * eye3) + 1e-8 * eye3
+    return Ud, _inv3x3(Vd), eyeD
+
+
+def _jacobi_blocks(ps, Ud, Vinv, W, reduce_fn=_single):
+    """The diagonal blocks of the COO layout's reduced camera system,
+    Sdiag = Ud - Σ W Vinv Wᵀ + 1e-7 I [C, D, D], which _block_jacobi
+    inverts.  The W Vinv Wᵀ sum crosses shards (reduce_fn)."""
     C, D = Ud.shape[0], Ud.shape[-1]
     eyeD = torch.eye(D, dtype=Ud.dtype, device=Ud.device)
     WVW = reduce_fn([
         segment_sum((Ws @ Vinv.to(Ws.device)[p.obs_pt]) @ Ws.transpose(1, 2),
                     p.obs_cam, C)
         for p, Ws in zip(ps, W)])
-    Sdiag = Ud - WVW + 1e-7 * eyeD
-    if D == 6:
-        return Sdiag, None
-    Sd_i = segment_sum(Sdiag[:, 6:, 6:], space.kam, C) + 1e-7 * eyeD[:8, :8]
-    return Sdiag[:, :6, :6], Sd_i
+    return Ud - WVW + 1e-7 * eyeD
+
+
+def _block_jacobi(Sdiag, space, eyeD):
+    """The block-Jacobi preconditioner x -> M⁻¹ x of a reduced camera
+    system from its diagonal blocks Sdiag [C, D, D]: each camera's block
+    inverted; with intrinsics (D = 14) a 6x6 pose block per camera and an
+    8x8 intrinsic block per intrinsic block (its cameras' blocks summed).
+    Batched LU (ops/linalg.solve): the JAX package's closed-form _inv_spd
+    avoids XLA's batched LU on a TPU, and costs about 75 small launches a
+    6x6 batch here."""
+    C = Sdiag.shape[0]
+
+    def inverse(M):
+        n = M.shape[-1]
+        return linalg.solve(M, eyeD[:n, :n].expand(C, n, n))
+
+    if Sdiag.shape[-1] == 6:
+        Minv = inverse(Sdiag)
+        return lambda x: _mv(Minv, x)
+    Minv_p = inverse(Sdiag[:, :6, :6])
+    Minv_i = inverse(segment_sum(Sdiag[:, 6:, 6:], space.kam, C)
+                     + 1e-7 * eyeD[:8, :8])
+
+    def precond(x):
+        xi = _mv(Minv_i, space.reduce(x))
+        return torch.cat([_mv(Minv_p, x[:, :6]), xi[space.kam]], dim=1)
+
+    return precond
 
 
 def _schur_solve(ps, U, V, W, bc, bp, lam, cg_iters, cg_tol,
@@ -763,18 +759,14 @@ def _schur_solve(ps, U, V, W, bc, bp, lam, cg_iters, cg_tol,
     summed over shards by reduce_fn: the rhs, the Jacobi blocks, the
     back-substituted W^T dx, and in each matvec the point sum (before
     Vinv is applied) and the camera sum.  The tied space's sums act on
-    reduced [C, ...] vectors and cross no shard."""
+    reduced [C, ...] vectors and cross no shard.  A CUDA graph cannot
+    capture sums that cross devices or processes, so _Pcg runs eagerly
+    here."""
     with span("xrsfm.ba.schur"):
         C, D = U.shape[0], U.shape[-1]
         P = ps[0].points.shape[0]
-        eyeD = torch.eye(D, dtype=U.dtype, device=U.device)
-        eye3 = torch.eye(3, dtype=U.dtype, device=U.device)
         space = _TiedSpace(ps[0].cam_kam, C) if D > 6 else _PlainSpace()
-
-        # multiplicative LM damping on the block diagonals
-        Ud = U + lam * (U * eyeD) + 1e-8 * eyeD
-        Vd = V + lam * (V * eye3) + 1e-8 * eye3
-        Vinv = _inv3x3(Vd)
+        Ud, Vinv, eyeD = _damped(U, V, lam)
 
         def pt_sum(x):  # sum over observations of W^T x_cam, into points
             return reduce_fn([
@@ -788,52 +780,19 @@ def _schur_solve(ps, U, V, W, bc, bp, lam, cg_iters, cg_tol,
                 segment_sum(_mv(Ws, y.to(Ws.device)[p.obs_pt]), p.obs_cam, C)
                 for p, Ws in zip(ps, W)])
 
-        def S_matvec(x):  # x [C, D]
-            zp = _mv(Vinv, pt_sum(x))
-            return space.proj(_mv(Ud, x) - cam_sum(zp))
+        def S_matvec(x, ypx):  # x [C, D], ypx = pt_sum(x)
+            return space.proj(_mv(Ud, x) - cam_sum(_mv(Vinv, ypx)))
 
         # rhs = bc - W Vinv bp
         rhs = space.proj(bc - cam_sum(_mv(Vinv, bp)))
-
-        # block-Jacobi preconditioner, LU-inverted
-        M_p, M_i = _jacobi_blocks(ps, Ud, Vinv, W, space, reduce_fn)
-        n = M_p.shape[-1]
-        Minv = linalg.solve(M_p, eyeD[:n, :n].expand(C, n, n))
-        if M_i is None:
-            def precond(x):
-                return _mv(Minv, x)
-        else:
-            Minv_i = linalg.solve(M_i, eyeD[:8, :8].expand(C, 8, 8))
-
-            def precond(x):
-                xi = _mv(Minv_i, space.reduce(x))
-                return torch.cat([_mv(Minv, x[:, :6]), xi[space.kam]], dim=1)
+        precond = _block_jacobi(_jacobi_blocks(ps, Ud, Vinv, W, reduce_fn),
+                                space, eyeD)
 
     with span("xrsfm.ba.pcg"):
-        dot = space.dot
-        x = torch.zeros_like(rhs)
-        r_ = rhs
-        z_ = precond(r_)
-        pk = z_
-        rz = dot(r_, z_)
-        bnorm = torch.sqrt(dot(rhs, rhs)) + 1e-30
-        for _ in range(cg_iters):
-            if not bool(torch.sqrt(dot(r_, r_)) > cg_tol * bnorm):
-                break
-            COUNTS["cg_iters"] += 1
-            Ap = S_matvec(pk)
-            denom = dot(pk, Ap)
-            alpha = rz / torch.where(denom.abs() < 1e-30, 1e-30, denom)
-            x = x + alpha * pk
-            r_ = r_ - alpha * Ap
-            z_ = precond(r_)
-            rz_new = dot(r_, z_)
-            beta = rz_new / torch.where(rz.abs() < 1e-30, 1e-30, rz)
-            pk = z_ + beta * pk
-            rz = rz_new
-
+        pcg = _Pcg(rhs, P, pt_sum, S_matvec, precond, space.dot, cg_tol)
+        pcg.run(cg_iters, graph=False)
         # back-substitute the points: dp = Vinv (bp - W^T dx_c)
-        return x, _mv(Vinv, bp - pt_sum(x))
+        return pcg.x, _mv(Vinv, bp - pt_sum(pcg.x))
 
 
 # ---------------------------------------------------------------------------
@@ -841,106 +800,53 @@ def _schur_solve(ps, U, V, W, bc, bp, lam, cg_iters, cg_tol,
 # ---------------------------------------------------------------------------
 
 
-def _identity(x):
-    return x
-
-
-def _build_normal_blocks_ell(p: BAProblem, ell: EllIndex, r, Jc, Jp, w,
-                             reduce_fn=None, return_pt_gathers=False,
-                             pt_dtype=torch.bfloat16, cam_only=False,
-                             return_cam_w=False):
-    """Normal-equation blocks through ELL rows: per-row products over the
-    fused (slot x residual row) axis, summed into segments over each
-    segment's rows.  Gauge masks are applied after the sums (a camera row
-    is mask-uniform: U_masked = m mᵀ ⊙ U; frozen points zero V and bp).
-
-    Row-native input (Jc [Rc,Mc,2,D] from _residuals_and_jacobians_rows):
-    the camera side uses the √w-scaled Jcw, U = Jcwᵀ Jcw and bc =
-    -Jcwᵀ (√w r).  Flat input (Jc [O,2,D]) gathers the camera rows.  The
-    point side gathers Jp and the packed scalars (w, w r0, w r1, 0) into
-    point rows; return_pt_gathers hands those (Jpg, spg) to
-    _schur_solve_ell, cam_only skips the point side (it then comes from
-    _build_pt_blocks_native) and return_cam_w hands Jcw on (pt_dtype, no
-    gauge mask).  Operands are cast to pt_dtype and products accumulate in
-    float32; the JAX package's flat branch casts its camera operands to
-    bfloat16 whatever pt_dtype says, the port to pt_dtype.  reduce_fn sums
-    each segment reduction across shards (identity on one device)."""
+def _build_normal_blocks_ell(p: BAProblem, ell: EllIndex, r, Jc, w):
+    """The camera side of the normal equations in the camera rows (r
+    [Rc,Mc,2] and Jc [Rc,Mc,2,D] from _residuals_and_jacobians_rows, IRLS
+    weights w [Rc,Mc]): with the √w-scaled Jcw = √w Jc, U = Jcwᵀ Jcw and
+    bc = -Jcwᵀ (√w r), per-row products over the fused (slot x residual
+    row) axis summed into cameras over each camera's rows.  Gauge masks
+    are applied after the sums (a camera row is mask-uniform: U_masked =
+    m mᵀ ⊙ U).  The point side is _build_pt_blocks_native's.  Returns
+    (U [C,D,D], bc [C,D], Jcw [Rc,Mc,2,D] unmasked) in Jc's dtype."""
     C = p.cam_q.shape[0]
-    P = p.points.shape[0]
-    red = reduce_fn if reduce_fn is not None else _identity
-    row_native = Jc.dim() == 4
-    sc_f = torch.cat([w[..., None], r * w[..., None],
-                      torch.zeros_like(w)[..., None]], dim=-1)
     D = Jc.shape[-1]
     Rc, Mc = ell.cam.slots.shape
-    if row_native:
-        sw = torch.sqrt(w.clamp_min(0.0))
-        Jcw = (Jc * sw[..., None, None]).to(pt_dtype)
-        swr = (r * sw[..., None]).to(pt_dtype)  # [Rc,Mc,2]
-        Jp16 = Jp.to(pt_dtype).reshape(-1, 2, 3)
-        sc_flat = sc_f.to(pt_dtype).reshape(-1, 4)
-        A = _acc(Jcw).reshape(Rc, Mc * 2, D)
-        U_rows = A.transpose(1, 2) @ A
-        bc_rows = -_mv(A.transpose(1, 2), _acc(swr).reshape(Rc, Mc * 2))
-    else:
-        Jc16 = Jc.to(pt_dtype)
-        Jp16 = Jp.to(pt_dtype)
-        sc_flat = sc_f.to(pt_dtype)
-        Jcg = _gather_rows(Jc16, ell.cam)  # [Rc,Mc,2,D]
-        scg = _gather_rows(sc_flat, ell.cam)  # [Rc,Mc,4]
-        A = (Jcg * scg[..., 0][..., None, None]).float().reshape(Rc, Mc * 2, D)
-        B = Jcg.float().reshape(Rc, Mc * 2, D)
-        U_rows = A.transpose(1, 2) @ B
-        bc_rows = -_mv(B.transpose(1, 2),
-                       scg[..., 1:3].float().reshape(Rc, Mc * 2))
-    U = red(segment_sum(U_rows, ell.cam.seg, C))
-    bc = red(segment_sum(bc_rows, ell.cam.seg, C))
+    sw = torch.sqrt(w.clamp_min(0.0))
+    Jcw = Jc * sw[..., None, None]
+    swr = r * sw[..., None]  # [Rc,Mc,2]
+    A = Jcw.reshape(Rc, Mc * 2, D)
+    U_rows = A.transpose(1, 2) @ A
+    bc_rows = -_mv(A.transpose(1, 2), swr.reshape(Rc, Mc * 2))
+    U = segment_sum(U_rows, ell.cam.seg, C)
+    bc = segment_sum(bc_rows, ell.cam.seg, C)
     m = _cam_colmask(p, D > 6)
-    U = U * (m[:, :, None] * m[:, None, :])
-    bc = bc * m
-    if cam_only:
-        return (U, bc, Jcw) if return_cam_w else (U, bc)
-
-    Rp, Lw = ell.pt.slots.shape
-    Jpg = _gather_rows(Jp16, ell.pt)  # [Rp,Lw,2,3]
-    spg = _gather_rows(sc_flat, ell.pt)  # [Rp,Lw,4]
-    V, bp = _pt_reduce(p, ell, Jpg, spg, red)
-    if return_pt_gathers:
-        return U, V, bc, bp, (Jpg, spg)
-    return U, V, bc, bp
+    return U * (m[:, :, None] * m[:, None, :]), bc * m, Jcw
 
 
-def _acc(x):
-    """x in the accumulation type: float32, or float64 when x is (the row
-    kernels' float64 reference runs)."""
-    return x if x.dtype == torch.float64 else x.float()
-
-
-def _pt_reduce(p: BAProblem, ell: EllIndex, Jpg, spg, red):
+def _pt_reduce(p: BAProblem, ell: EllIndex, Jpg, spg):
     """V = Σ w Jpᵀ Jp and bp = -Σ Jpᵀ (w r) of each point from its rows of
     (Jpg [Rp,Lw,2,3], spg [Rp,Lw,4]), frozen points zeroed."""
     Rp, Lw = ell.pt.slots.shape
     P = p.points.shape[0]
-    A2 = _acc(Jpg * spg[..., 0][..., None, None]).reshape(Rp, Lw * 2, 3)
-    B2 = _acc(Jpg).reshape(Rp, Lw * 2, 3)
+    A2 = (Jpg * spg[..., 0][..., None, None]).reshape(Rp, Lw * 2, 3)
+    B2 = Jpg.reshape(Rp, Lw * 2, 3)
     V_rows = A2.transpose(1, 2) @ B2
-    bp_rows = -_mv(B2.transpose(1, 2), _acc(spg[..., 1:3]).reshape(Rp, -1))
-    V = red(segment_sum(V_rows, ell.pt.seg, P))
-    bp = red(segment_sum(bp_rows, ell.pt.seg, P))
+    bp_rows = -_mv(B2.transpose(1, 2), spg[..., 1:3].reshape(Rp, -1))
+    V = segment_sum(V_rows, ell.pt.seg, P)
+    bp = segment_sum(bp_rows, ell.pt.seg, P)
     ptm = (~p.fix_pt).to(V.dtype)
     return V * ptm[:, None, None], bp * ptm[:, None]
 
 
-def _build_pt_blocks_native(p: BAProblem, ell: EllIndex, huber_px,
-                            reduce_fn=None, pt_dtype=torch.bfloat16):
-    """Point blocks recomputed in the point-major layout (needs
-    pack_camera_major's pt_uv / pt_w): per-slot camera parameters from the
-    small [C, 15] table, the point row-uniform, pixels and weights from
-    the static point-major copies, so no observation-sized array is
-    gathered from the camera-major table.  Returns V [P,3,3], bp [P,3] and
-    (Jpg [Rp,Lw,2,3], spg [Rp,Lw,4]) in pt_dtype, as _schur_solve_ell's
-    pt_gathers wants them; a slot of weight 0 has Jpg and spg zero."""
-    red = reduce_fn if reduce_fn is not None else _identity
+def _build_pt_blocks_native(p: BAProblem, ell: EllIndex, huber_px):
+    """Point blocks recomputed in the point-major layout: per-slot camera
+    parameters from the small [C, 15] table, the point row-uniform, pixels
+    and weights from the static point-major copies pt_uv / pt_w, so no
+    observation-sized array is gathered from the camera-major table.
+    Returns V [P,3,3], bp [P,3] and (Jpg [Rp,Lw,2,3], spg [Rp,Lw,4]) in
+    the problem's dtype, as _schur_solve_ell's pt_gathers wants them; a
+    slot of weight 0 has Jpg and spg zero."""
     g = ell.pt.other  # [Rp,Lw] camera id per slot (0 on padding)
     gt = torch.cat([p.cam_q, p.cam_t, p.cam_intri], dim=1)[g]  # [Rp,Lw,15]
     q, t, intri = gt[..., :4], gt[..., 4:7], gt[..., 7:15]
@@ -962,10 +868,10 @@ def _build_pt_blocks_native(p: BAProblem, ell: EllIndex, huber_px,
     # gives it a Jacobian and a residual that overflow, and 0 x inf would
     # reach V, bp and the Schur solve
     live = (w != 0)[..., None]
-    Jpg = torch.where(live[..., None], Jp, 0.0).to(pt_dtype)
+    Jpg = torch.where(live[..., None], Jp, 0.0)
     spg = torch.cat([w[..., None], torch.where(live, r * w[..., None], 0.0),
-                     torch.zeros_like(w)[..., None]], dim=-1).to(pt_dtype)
-    V, bp = _pt_reduce(p, ell, Jpg, spg, red)
+                     torch.zeros_like(w)[..., None]], dim=-1)
+    V, bp = _pt_reduce(p, ell, Jpg, spg)
     return V, bp, (Jpg, spg)
 
 
@@ -984,190 +890,109 @@ def _chol3x3(M):
                         torch.stack([l20, l21, l22], -1)], dim=-2)
 
 
-def _schur_solve_ell(p: BAProblem, ell: EllIndex, U, V, bc, bp, Jc, Jp, w,
-                     lam, cg_iters, cg_tol, reduce_fn=None,
-                     compute_dtype=torch.bfloat16, pt_gathers=None,
-                     cam_w=None):
+def _schur_solve_ell(p: BAProblem, ell: EllIndex, U, V, bc, bp, lam,
+                     cg_iters, cg_tol, pt_gathers, cam_w):
     """ELL Schur solve: points marginalized in closed form, PCG on the
     reduced camera system, back-substitution.
 
     With L = chol(V⁻¹), Y_o = w_o Jc_oᵀ Jp_o L_p absorbs the point
     marginalization (G V⁻¹ Gᵀ = (G L)(G L)ᵀ).  Y = Jcᵀ Z with Z = w Jp L
     [.,2,3] is never built: Yᵀx = Zᵀ(Jc x), Y z = Jcᵀ(Z z), Σ Y Yᵀ =
-    Jcᵀ (Z Zᵀ) Jc.  Modes, as in the JAX package:
-      * pt_major (row-native Jc, pt_gathers and ell.pt_pos): Z lives only
-        in point order (Zpt, from pt_gathers with L row-uniform), and the
-        small per-slot results b = Z z [2] and Z Zᵀ [2,2] cross to the
-        camera rows through pt_pos;
-      * weighted (pt_major and cam_w = √w Jc from the normal-block build):
-        every camera-side product uses cam_w with Z' = √w Jp L, and the
-        gauge masks are applied per camera after each sum; Jc, Jp and w
-        are then not read (may be None);
-      * flat (Jc [O,2,D]): Z built in the flat table and gathered.
-    With a 14-column Jc the tied-intrinsics space of _TiedSpace holds the
-    PCG vectors.  Operands in compute_dtype, products accumulated in
-    float32.  PCG (_Pcg) reads its stop test on the host once an
-    iteration, on a GPU after replaying the iteration as a CUDA graph
-    captured for this call, and carries Σ alpha ypt(p_k), so the
+    Jcᵀ (Z Zᵀ) Jc.  The √w of each slot is split between the two sides
+    (the JAX package's weighted point-major mode): every camera-side
+    product uses cam_w = √w Jc (cam_rows' Jcw, gauge masks applied per
+    camera after each sum), and Z' = √w Jp L lives only in point order,
+    from pt_gathers = (Jpg, spg) (pt_rows'), with L row-uniform there; the
+    small per-slot results b = Z' z [2] and Z' Z'ᵀ [2,2] cross to the
+    camera rows through ell.pt_pos.  With a 14-column cam_w the
+    tied-intrinsics space of _TiedSpace holds the PCG vectors.  Every
+    operand is in U's dtype.  PCG (_Pcg) reads its stop test on the host
+    once an iteration, on a GPU after replaying the iteration as a CUDA
+    graph captured for this call, and carries Σ alpha ypt(p_k), so the
     back-substitution needs no further point sum.  Returns (dx_c [C,D],
     dx_p [P,3])."""
     with span("xrsfm.ba.schur"):
         C = p.cam_q.shape[0]
         P = p.points.shape[0]
         D = U.shape[-1]
-        with_intri = D > 6
-        red = reduce_fn if reduce_fn is not None else _identity
-        eyeD = torch.eye(D, dtype=U.dtype, device=U.device)
-        eye3 = torch.eye(3, dtype=U.dtype, device=U.device)
-        Ud = U + lam * (U * eyeD) + 1e-8 * eyeD
-        Vd = V + lam * (V * eye3) + 1e-8 * eye3
-        Vinv = _inv3x3(Vd)
-        L = _chol3x3(Vinv)  # [P,3,3]
-
-        cd = compute_dtype
-        ptm = (~p.fix_pt).to(U.dtype)
         Rc, Mc = ell.cam.slots.shape
         Rp, Lw = ell.pt.slots.shape
-        row_native = (Jc if Jc is not None else cam_w).dim() == 4
-        pt_major = (row_native and pt_gathers is not None
-                    and ell.pt_pos is not None)
-        weighted = cam_w is not None and pt_major
-        m_post = _cam_colmask(p, with_intri) if weighted else None  # [C,D]
-        Z = Zpt = Jc_flat = None
-        if row_native:
-            if weighted:
-                Jc16 = cam_w.to(cd)
-            else:
-                mg = _cam_colmask(p, with_intri).to(cd)[ell.cam.seg]
-                Jc16 = Jc.to(cd) * mg[:, None, None, :]  # [Rc,Mc,2,D]
-            if not pt_major:
-                wm = (w * ptm[ell.cam.other]).to(cd)
-                Z = (Jp.to(cd) @ L.to(cd)[ell.cam.other]) * wm[..., None, None]
-        else:
-            wm = (w * ptm[p.obs_pt]).to(cd)
-            Z_flat = (Jp.to(cd) @ L.to(cd)[p.obs_pt]) * wm[:, None, None]
-            mg = _cam_colmask(p, with_intri).to(cd)[p.obs_cam]  # [O,D]
-            Jc_flat = Jc.to(cd) * mg[:, None, :]  # [O,2,D]
-            # in the flat layout the slot tables index the ORIGINAL table
-            Zpt = _gather_rows(Z_flat, ell.pt)  # [Rp,Lw,2,3]
-            Jc16 = _gather_rows(Jc_flat, ell.cam)  # [Rc,Mc,2,D]
-            Z = _gather_rows(Z_flat, ell.cam)  # [Rc,Mc,2,3]
-        if Zpt is None:
-            if pt_gathers is not None:
-                # Zpt = Jp_pt L w from the point-order gathers: L and the
-                # fix_pt mask are row-uniform in point order
-                Jpg, spg = pt_gathers
-                w_or_sw = spg[..., 0].float()
-                if weighted:  # √w here when cam_w carries the other √w
-                    w_or_sw = torch.sqrt(w_or_sw.clamp_min(0.0))
-                wrow = (w_or_sw * ptm[ell.pt.seg][:, None]).to(cd)
-                Zpt = (Jpg.to(cd) @ L.to(cd)[ell.pt.seg][:, None]) \
-                    * wrow[..., None, None]
-            else:
-                Zpt = _gather_obs(Z.reshape(-1, 2, 3), ell.pt.slots)
-        space = _TiedSpace(p.cam_kam, C) if with_intri else _PlainSpace()
+        Ud, Vinv, eyeD = _damped(U, V, lam)
+        L = _chol3x3(Vinv)  # [P,3,3]
+        ptm = (~p.fix_pt).to(U.dtype)
+        m = _cam_colmask(p, D > 6)  # [C,D]
+        # Z' = √w Jp L from the point-order gathers: L and the fix_pt mask
+        # are row-uniform in point order
+        Jpg, spg = pt_gathers
+        sw = torch.sqrt(spg[..., 0].clamp_min(0.0))
+        wrow = sw * ptm[ell.pt.seg][:, None]
+        Zpt = (Jpg @ L[ell.pt.seg][:, None]) * wrow[..., None, None]
+        Zrows = Zpt.reshape(Rp, Lw * 2, 3)
+        Jrows = cam_w.reshape(Rc, Mc * 2, D)
+        space = _TiedSpace(p.cam_kam, C) if D > 6 else _PlainSpace()
 
         def ypt_reduce(x):
             """yp[p] = Σ_{o in p} Y_oᵀ x_cam(o) = Σ Z_oᵀ (Jc_o x)  -> [P,3]"""
-            if row_native:
-                a = _mv(Jc16.reshape(Rc, Mc * 2, D), x.to(cd)[ell.cam.seg])
-                apt = _gather_obs(a.reshape(-1, 2), ell.pt.slots)
-            else:
-                a = _mv(Jc_flat, x.to(cd)[p.obs_cam])
-                apt = _gather_rows(a, ell.pt)  # [Rp,Lw,2]
-            yrow = _mv(Zpt.float().reshape(Rp, Lw * 2, 3).transpose(1, 2),
-                       apt.float().reshape(Rp, Lw * 2))
-            return red(segment_sum(yrow, ell.pt.seg, P))
+            a = _mv(Jrows, x[ell.cam.seg])
+            apt = _gather_obs(a.reshape(-1, 2), ell.pt.slots)
+            yrow = _mv(Zrows.transpose(1, 2), apt.reshape(Rp, Lw * 2))
+            return segment_sum(yrow, ell.pt.seg, P)
 
         def cam_reduce(b):
-            """Σ_{o in c} Jc_oᵀ b_o -> [C,D], masked per camera if weighted"""
-            trow = _mv(Jc16.float().reshape(Rc, Mc * 2, D).transpose(1, 2),
-                       b.float().reshape(Rc, Mc * 2))
-            out = red(segment_sum(trow, ell.cam.seg, C))
-            return out * m_post if weighted else out
+            """Σ_{o in c} Jc_oᵀ b_o -> [C,D], masked per camera"""
+            trow = _mv(Jrows.transpose(1, 2), b.reshape(Rc, Mc * 2))
+            return segment_sum(trow, ell.cam.seg, C) * m
 
         def ycam_reduce(zp):
-            """t[c] = Σ_{o in c} Y_o z_pt(o) = Σ Jc_oᵀ (Z_o z)  -> [C,D]"""
-            if pt_major:
-                # z is row-uniform in point order; only the [2]-vector result
-                # crosses the layouts
-                b_pt = _mv(Zpt.reshape(Rp, Lw * 2, 3), zp[ell.pt.seg].to(cd))
-                b = _gather_obs(b_pt.reshape(-1, 2), ell.pt_pos)
-            else:
-                b = _mv(Z, zp[ell.cam.other].to(cd))
-            return cam_reduce(b)
+            """t[c] = Σ_{o in c} Y_o z_pt(o) = Σ Jc_oᵀ (Z_o z)  -> [C,D]:
+            z is row-uniform in point order; only the [2]-vector result
+            crosses the layouts"""
+            b_pt = _mv(Zrows, zp[ell.pt.seg])
+            return cam_reduce(_gather_obs(b_pt.reshape(-1, 2), ell.pt_pos))
 
         def S_matvec(x, ypx):
             return space.proj(_mv(Ud, x) - ycam_reduce(ypx))
 
-        # rhs = bc - Σ_o Y_o (Lᵀ bp)_pt(o); the preconditioner needs the
-        # per-slot 2x2 Gram of Z.  Point-major: both cross to the camera rows
-        # in one 6-wide payload gather.
+        # rhs = bc - Σ_o Y_o (Lᵀ bp)_pt(o), and the per-slot 2x2 Gram of Z
+        # that the preconditioner needs: both cross to the camera rows in
+        # one 6-wide payload gather
         u = _mv(L.transpose(1, 2), bp)  # Lᵀ bp [P,3]
-        if pt_major:
-            b_pt = _mv(Zpt.reshape(Rp, Lw * 2, 3), u[ell.pt.seg].to(cd)) \
-                .reshape(Rp, Lw, 2)
-            Gz_pt = Zpt.float() @ Zpt.float().transpose(-1, -2)  # [Rp,Lw,2,2]
-            payload = torch.cat([b_pt.to(cd), Gz_pt.to(cd).reshape(Rp, Lw, 4)],
-                                dim=-1)
-            pay = _gather_obs(payload.reshape(-1, 6), ell.pt_pos)  # [Rc,Mc,6]
-            Gz = pay[..., 2:].reshape(Rc, Mc, 2, 2)
-            rhs = space.proj(bc - cam_reduce(pay[..., :2]))
-        else:
-            rhs = space.proj(bc - ycam_reduce(u))
-            Gz = Z.float() @ Z.float().transpose(-1, -2)  # [Rc,Mc,2,2]
-        Hz = (Gz.to(cd).float() @ Jc16.float()).to(cd)  # [Rc,Mc,2,D]
-        S_rows = Jc16.float().reshape(Rc, Mc * 2, D).transpose(1, 2) \
-            @ Hz.float().reshape(Rc, Mc * 2, D)  # [Rc,D,D]
-        corr = red(segment_sum(S_rows, ell.cam.seg, C))
-        if weighted:  # keep masked blocks exactly Ud's (SPD)
-            corr = corr * (m_post[:, :, None] * m_post[:, None, :])
-        Sdiag = Ud - corr + 1e-7 * eyeD
-
-        def inverse(M):
-            # batched LU, as _schur_solve inverts its Jacobi blocks (the JAX
-            # package's closed-form _inv_spd avoids XLA's batched LU on a TPU,
-            # and costs about 75 small launches a 6x6 batch here)
-            n = M.shape[-1]
-            return linalg.solve(M, eyeD[:n, :n].expand(M.shape[0], n, n))
-
-        if with_intri:
-            # a pose block per camera and an intrinsic block per block
-            Minv_p = inverse(Sdiag[:, :6, :6])
-            Minv_i = inverse(segment_sum(Sdiag[:, 6:, 6:], space.kam, C)
-                             + 1e-7 * eyeD[:8, :8])
-
-            def precond(x):
-                xi = _mv(Minv_i, space.reduce(x))
-                return torch.cat([_mv(Minv_p, x[:, :6]), xi[space.kam]], dim=1)
-        else:
-            Minv = inverse(Sdiag)
-
-            def precond(x):
-                return _mv(Minv, x)
+        b_pt = _mv(Zrows, u[ell.pt.seg]).reshape(Rp, Lw, 2)
+        Gz_pt = Zpt @ Zpt.transpose(-1, -2)  # [Rp,Lw,2,2]
+        payload = torch.cat([b_pt, Gz_pt.reshape(Rp, Lw, 4)], dim=-1)
+        pay = _gather_obs(payload.reshape(-1, 6), ell.pt_pos)  # [Rc,Mc,6]
+        Gz = pay[..., 2:].reshape(Rc, Mc, 2, 2)
+        rhs = space.proj(bc - cam_reduce(pay[..., :2]))
+        Hz = Gz @ cam_w  # [Rc,Mc,2,D]
+        S_rows = Jrows.transpose(1, 2) @ Hz.reshape(Rc, Mc * 2, D)
+        # masked blocks kept exactly Ud's (SPD)
+        corr = segment_sum(S_rows, ell.cam.seg, C) \
+            * (m[:, :, None] * m[:, None, :])
+        precond = _block_jacobi(Ud - corr + 1e-7 * eyeD, space, eyeD)
 
     with span("xrsfm.ba.pcg"):
         pcg = _Pcg(rhs, P, ypt_reduce, S_matvec, precond, space.dot, cg_tol)
-        pcg.run(cg_iters)
+        pcg.run(cg_iters, graph=True)
         # dp = V⁻¹ bp - L Σ_{o in p} Y_oᵀ dx_cam(o)
         return pcg.x, _mv(Vinv, bp) - _mv(L, pcg.ypx)
 
 
 class _Pcg:
     """Block-Jacobi PCG on one LM step's reduced camera system S x = rhs
-    (_schur_solve_ell), held in state tensors that `step` updates in
-    place: x; ypx = Σ alpha_k ypt(p_k), which is ypt(x) by linearity (x
-    starts at 0) and spares the back-substitution a point sum; the
-    residual r (rhs itself, overwritten); the direction pk; rz = rᵀ M⁻¹ r;
-    and go, the next iteration's stop test sqrt(rᵀ r) > cg_tol |rhs|.
-    The in-place and out= operations compute what an out-of-place loop
-    computes, in the same order, bit for bit.
+    (_schur_solve_ell, _schur_solve), held in state tensors that `step`
+    updates in place: x; ypx = Σ alpha_k ypt(p_k), which is ypt(x) by
+    linearity (x starts at 0) and spares the ELL back-substitution a point
+    sum; the residual r (rhs itself, overwritten); the direction pk; rz =
+    rᵀ M⁻¹ r; and go, the next iteration's stop test sqrt(rᵀ r) > cg_tol
+    |rhs|.  ypt_reduce(x) is the matvec's point sum and S_matvec(x,
+    ypt_reduce(x)) the matvec.  The in-place and out= operations compute
+    what an out-of-place loop computes, in the same order, bit for bit.
 
-    Since the state keeps its addresses, `run` on a GPU captures the step
-    once as a CUDA graph (_pcg_graph) and replays it each iteration: one
-    graph launch in place of the step's ~45 kernels.  The graph reads the
-    setup's tensors (Jacobians, Z, the preconditioner) by address, with no
-    copy, so it is never replayed after run returns."""
+    Since the state keeps its addresses, `run` on a GPU can capture the
+    step once as a CUDA graph (_pcg_graph) and replay it each iteration:
+    one graph launch in place of the step's ~45 kernels.  The graph reads
+    the setup's tensors (Jacobians, Z, the preconditioner) by address,
+    with no copy, so it is never replayed after run returns."""
 
     def __init__(self, rhs, n_pts, ypt_reduce, S_matvec, precond, dot,
                  cg_tol):
@@ -1202,23 +1027,25 @@ class _Pcg:
         torch.add(z, beta * self.pk, out=self.pk)
         self.test(out=self.go)
 
-    def run(self, cg_iters):
+    def run(self, cg_iters, graph):
         """At most cg_iters iterations while the stop test holds, read on
-        the host before each (none when cg_iters is 0)."""
+        the host before each (none when cg_iters is 0).  graph: replay
+        the step as a CUDA graph where the state lies on a GPU (False
+        where the matvec's sums may cross devices)."""
         if cg_iters <= 0:
             return
         self.go = self.test()
         if not bool(self.go):
             return
-        graph = (_pcg_graph(self.step, self.r.device) if self.r.is_cuda
-                 else None)
+        replay = (_pcg_graph(self.step, self.r.device).replay
+                  if graph and self.r.is_cuda else None)
         for k in range(cg_iters):
             COUNTS["cg_iters"] += 1
-            if graph is None:
+            if replay is None:
                 self.step()
             else:
                 COUNTS["pcg_graph_replays"] += 1
-                graph.replay()
+                replay()
             if k + 1 == cg_iters or not bool(self.go):
                 break
 
@@ -1291,24 +1118,20 @@ def _pcg_graph(step, device):
 
 def cam_rows_plain(p: BAProblem, ell: EllIndex, huber_px,
                    with_intri: bool = False):
-    """Plain version of the camera-row kernel, float32:
+    """Plain version of the camera-row kernel, in the problem's dtype:
     _residuals_and_jacobians_rows, _robust_cost_and_weight and
-    _build_normal_blocks_ell(cam_only, return_cam_w).  Returns (robust cost
-    of the table, U [C,D,D] and bc [C,D] gauge-masked, Jcw [Rc,Mc,2,D])."""
-    r, z, Jc, Jp = _residuals_and_jacobians_rows(p, ell, with_intri)
+    _build_normal_blocks_ell.  Returns (robust cost of the table, U
+    [C,D,D] and bc [C,D] gauge-masked, Jcw [Rc,Mc,2,D])."""
+    r, z, Jc, _ = _residuals_and_jacobians_rows(p, ell, with_intri)
     cost, w = _robust_cost_and_weight(
         r, z, p.obs_w.reshape(ell.cam.slots.shape), huber_px)
-    U, bc, Jcw = _build_normal_blocks_ell(
-        p, ell, r, Jc, Jp, w, pt_dtype=torch.float32, cam_only=True,
-        return_cam_w=True)
-    return cost, U, bc, Jcw
+    return (cost,) + _build_normal_blocks_ell(p, ell, r, Jc, w)
 
 
 def pt_rows_plain(p: BAProblem, ell: EllIndex, huber_px):
-    """Plain version of the point-row kernel: _build_pt_blocks_native in
-    float32.  Returns (V [P,3,3], bp [P,3], (Jpg [Rp,Lw,2,3], spg
-    [Rp,Lw,4]))."""
-    return _build_pt_blocks_native(p, ell, huber_px, pt_dtype=torch.float32)
+    """Plain version of the point-row kernel: _build_pt_blocks_native.
+    Returns (V [P,3,3], bp [P,3], (Jpg [Rp,Lw,2,3], spg [Rp,Lw,4]))."""
+    return _build_pt_blocks_native(p, ell, huber_px)
 
 
 def _check_cuda(dev, **tensors):
@@ -1371,9 +1194,9 @@ def cam_rows_cuda(p: BAProblem, ell: EllIndex, huber_px,
     C, P = p.cam_q.shape[0], p.points.shape[0]
     Rc, Mc = ell.cam.slots.shape
     D = 14 if with_intri else 6
-    if not (ell.cam.contig and 1 <= Mc <= 128 and C >= 1):
-        raise ValueError(f"cam_rows: needs camera-major rows of 1..128 "
-                         f"slots and a camera, got {Rc}x{Mc}, C={C}")
+    if not (1 <= Mc <= 128 and C >= 1):
+        raise ValueError(f"cam_rows: needs camera rows of 1..128 slots and "
+                         f"a camera, got {Rc}x{Mc}, C={C}")
     if with_intri and p.fix_intri is None:
         raise ValueError("cam_rows: D = 14 needs fix_intri")
     f32, i32, b8 = torch.float32, torch.int32, torch.bool
@@ -1408,14 +1231,14 @@ def cam_rows_cuda(p: BAProblem, ell: EllIndex, huber_px,
 
 def pt_rows_cuda(p: BAProblem, ell: EllIndex, huber_px):
     """The kernel csrc/ba_pt_rows.cu: pt_rows_plain's contract for a
-    camera-major packed problem (pt_uv / pt_w present) on a CUDA device,
-    whose ids the kernel trusts.  Point rows 8, 16 or 32 slots wide (the
-    widths pack_camera_major gives).  Builds the kernel on first use;
-    raises on a bad input, a failed build or a refused launch."""
+    camera-major packed problem on a CUDA device, whose ids the kernel
+    trusts.  Point rows 8, 16 or 32 slots wide (the widths
+    pack_camera_major gives).  Builds the kernel on first use; raises on a
+    bad input, a failed build or a refused launch."""
     dev = p.cam_q.device
     C, P = p.cam_q.shape[0], p.points.shape[0]
     Rp, Lw = ell.pt.slots.shape
-    if ell.pt_uv is None or Lw not in (8, 16, 32) or P < 1:
+    if Lw not in (8, 16, 32) or P < 1:
         raise ValueError(f"pt_rows: needs pack_camera_major's point rows "
                          f"of 8, 16 or 32 slots and a point, got {Rp}x{Lw}, "
                          f"P={P}")
@@ -1497,9 +1320,9 @@ def solve_ba(p: BAProblem, opts: BAOptions = BAOptions(),
     """Run LM.  Returns (solved problem, info dict with float
     initial_cost, final_cost, lam and int iters).
 
-    ell: None runs the COO solver; an EllIndex of p runs the ELL solver,
-    through the camera rows when p was packed by pack_camera_major (the
-    row kernels on a GPU), through gathers for build_ell's flat tables."""
+    ell: None runs the COO solver; the EllIndex of p that
+    pack_camera_major returned with it runs the ELL solver through the
+    camera rows (the row kernels on a GPU)."""
     if opts.optimize_intrinsics and (p.cam_kam is None
                                      or p.fix_intri is None):
         raise ValueError("optimize_intrinsics requires cam_kam and "
@@ -1508,7 +1331,7 @@ def solve_ba(p: BAProblem, opts: BAOptions = BAOptions(),
     COUNTS[f"solves_{dev}"] += 1
     if opts.optimize_intrinsics:
         COUNTS[f"intri_solves_{dev}"] += 1
-    if ell is not None and ell.cam.contig:
+    if ell is not None:
         COUNTS[f"row_solves_{dev}"] += 1
     with span("xrsfm.ba.solve"), full_precision(), \
             _on_ba_stream(p.cam_q.device):
@@ -1536,40 +1359,21 @@ def _solve(p: BAProblem, opts: BAOptions):
 
 
 def _solve_ell(p: BAProblem, opts: BAOptions, ell: EllIndex):
-    row_native = ell.cam.contig
     with_intri = opts.optimize_intrinsics
-    f32 = torch.float32
 
     def cost_of(prob):
-        if row_native:
-            r, z = _residuals_only_rows(prob, ell)
-            w0 = prob.obs_w.reshape(ell.cam.slots.shape)
-        else:
-            r, z = _residuals_only(prob)
-            w0 = prob.obs_w
-        return _robust_cost_and_weight(r, z, w0, opts.huber_px)[0]
+        r, z = _residuals_only_rows(prob, ell)
+        return _robust_cost_and_weight(
+            r, z, prob.obs_w.reshape(ell.cam.slots.shape), opts.huber_px)[0]
 
     def step(prob, lam):
-        Jc = Jp = w = camw = None
         with span("xrsfm.ba.rows"):
-            if row_native:
-                # the camera side from the camera rows, the point side
-                # recomputed in point order; √w Jc shared with the Schur
-                # solve
-                _, U, bc, camw = cam_rows(prob, ell, opts.huber_px,
-                                          with_intri)
-                V, bp, ptg = pt_rows(prob, ell, opts.huber_px)
-            else:
-                r, z, Jc, Jp = _residuals_and_jacobians(prob, with_intri)
-                _, w = _robust_cost_and_weight(r, z, prob.obs_w,
-                                               opts.huber_px)
-                U, V, bc, bp, ptg = _build_normal_blocks_ell(
-                    prob, ell, r, Jc, Jp, w, return_pt_gathers=True,
-                    pt_dtype=f32)
-        return _schur_solve_ell(prob, ell, U, V, bc, bp, Jc, Jp, w, lam,
-                                opts.cg_iters, opts.cg_tol,
-                                compute_dtype=f32, pt_gathers=ptg,
-                                cam_w=camw)
+            # the camera side from the camera rows, the point side
+            # recomputed in point order; √w Jc shared with the Schur solve
+            _, U, bc, camw = cam_rows(prob, ell, opts.huber_px, with_intri)
+            V, bp, ptg = pt_rows(prob, ell, opts.huber_px)
+        return _schur_solve_ell(prob, ell, U, V, bc, bp, lam, opts.cg_iters,
+                                opts.cg_tol, ptg, camw)
 
     return _lm(p, opts, cost_of, step)
 

@@ -133,9 +133,8 @@ def main(argv=None):
         (_, U, bc, camw), (V, bp, ptg) = jac_normal()
 
     def schur_setup():
-        return ba._schur_solve_ell(
-            p, ell, U, V, bc, bp, None, None, None, lam, 0, 1e-20,
-            compute_dtype=torch.float32, pt_gathers=ptg, cam_w=camw)
+        return ba._schur_solve_ell(p, ell, U, V, bc, bp, lam, 0, 1e-20,
+                                   ptg, camw)
 
     def solve(k, iters):
         return ba.solve_ba(p, ba.BAOptions(
